@@ -2,18 +2,29 @@
 
     python3 chip_smoke.py
 
-1. prints the card's name and power limit, builds every kernel of the main
-   path from kernels/csrc/ with nvcc (sm_90a) and prints the build time;
-2. holds K1 (kernels/csrc/pt_kernel.cu) against its plain PyTorch version
+1. prints the card's name and power limit, builds every kernel from
+   kernels/csrc/ with nvcc (sm_90a, one process per source) and prints the
+   build time;
+2. K1 (csrc/pt_kernel.cu, small scenes) against its plain PyTorch version
    (pt_pass_reference) on the card: Cornell 512x512, 1 spp, for PT/mwc,
-   DL/mwc and PT/counter, and checks progressive resume (1+1 vs 2 spp);
-3. drives the main path: ``cli.main(["render", ...])`` and
-   ``driver.render.render`` on Cornell 512x512 at 8 spp, with every kernel
-   launch counter set to 0 just before and read just after, and checks the
-   image against the plain version's mean;
-4. times the kernel, the end-to-end render with readback, and the plain
-   version, and prints one JSON line per kernel (``{"kernels": [...]}``);
-5. prints ``{"ok": true, "device": {...}}`` as its last line.
+   DL/mwc and PT/counter, and progressive resume (1+1 vs 2 spp);
+3. the Cornell main path: ``cli.main(["render", ...])`` and
+   ``driver.render.render`` at 512x512, 8 spp, with every launch counter set
+   to 0 just before and read just after; the image against the plain mean;
+4. K1 timing: kernel, end to end with readback, plain, breakdown, bound;
+5. K2 (csrc/pt_kernel.cu, the blocked, culled sweep) against the plain
+   version on ``complex`` (783 spheres) at 512x512, 1 spp, PT/mwc and
+   PT/counter; cull on against cull off, bitwise, at 512x512, 1 spp;
+6. the complex783 main path (CLI and ``render``, 512x512, 8 spp: one K2
+   launch per render, no K1 launch) and K2 timing, its bound counted from
+   the per-ray culled work of the plain version;
+7. K3 (csrc/whitted_kernel.cu) against the plain Whitted tracer on room and
+   grid at 800x600, 3x3, depth 5, through the explicit-ray entry and the
+   frame entry, for hit_bias 0 and 0.005;
+8. the Whitted main path (CLI and ``render_whitted``, room 800x600 3x3:
+   one K3 launch per render) and K3 timing;
+9. prints one JSON line per kernel (``{"kernels": [...]}``) and, last,
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Imports nothing of
 JAX or of the JAX package. Exits non-zero without a result when no CUDA
@@ -44,11 +55,27 @@ MEAN_RTOL = 2e-3
 MAX_STATE_MISMATCH = 0.01  # share of lanes whose RNG state differs
 RESUME_TOL = 1e-5
 MAIN_MEAN_RTOL = 0.01
+# K3 against its plain version on the 0..255 frame: the bound that
+# tests/test_pallas_kernel.py:96 sets for the TPU kernel against jnp.
+W_RTOL, W_ATOL = 1e-3, 2e-2
+WHITTED = dict(width=800, height=600, supersample=3, trace_depth=5)
+COMPLEX = "complex"
 # Roofline inputs: published H100 SXM peaks (NVIDIA data sheet), FP32
 # outside the tensor cores and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 STATE_BYTES_PER_LANE = 40  # s0, s1, acc: 20 B read + 20 B written per call
+# FP32 ops per unit of work, counted from the kernels' sources (lower
+# figures where an op count is unsure, so that a bound stays a bound).
+OPS_CAMERA = 25  # per primary sample
+OPS_SHADE = 70  # per live bounce: hit point, normal, material branch, RNG
+OPS_SHADOW_SETUP = 45  # per shadow ray: light sample, direction, weights
+OPS_SPHERE_NEAREST = 15  # per sphere test of a nearest sweep
+OPS_SPHERE_SHADOW = 12  # per sphere test of a shadow sweep
+OPS_BOUND = 14  # per block-bound test (block_possible)
+W_OPS_PLANE, W_OPS_SPHERE = 15, 20  # per primitive test of a Whitted sweep
+W_OPS_LIGHT = 45  # per light of a lit Whitted node: direction, N.L, Phong
+W_OPS_NODE = 40  # per live Whitted node: hit point, normal, contribution, children
 
 
 def check(cond: bool, msg: str) -> None:
@@ -65,8 +92,8 @@ def card_line() -> str:
 
 
 def ops_per_bounce(n_spheres: int, n_lights: int) -> float:
-    """FP32 ops of one live bounce, counted as bench.py:46-54 counts them: a
-    nearest sweep (~15 ops/sphere), one shadow sweep per light (~12
+    """FP32 ops of one live K1 bounce, counted as bench.py:46-54 counts them:
+    a nearest sweep (~15 ops/sphere), one shadow sweep per light (~12
     ops/sphere + ~45 setup) and ~70 ops of shading, RNG and bookkeeping."""
     return 15.0 * n_spheres + n_lights * (12.0 * n_spheres + 45.0) + 70.0
 
@@ -78,8 +105,10 @@ def get_spec(name):
 
 
 def pass_inputs(scene_name, width, height, integrator, rng, device, seed=SEED):
-    """Scene table, camera row, fresh (s0, s1, acc) and keyword arguments of
-    K1 at the shapes render_cuda gives it."""
+    """Scene table, camera row, fresh (s0, s1, acc), pix (None for K1) and
+    keyword arguments of K1 or K2 at the shapes render_cuda gives them."""
+    import torch
+
     from se195_raytracer_tpu_torch.core.config import RenderConfig
     from se195_raytracer_tpu_torch.kernels import pt_kernel as ptk
 
@@ -89,9 +118,11 @@ def pass_inputs(scene_name, width, height, integrator, rng, device, seed=SEED):
                        integrator=integrator, rng=rng)
     scene_tab = ptk.pack_scene(scene)
     cam_tab = ptk.pack_camera(ptk.update_camera(camera, width, height))
+    blocked = scene.num_spheres > ptk.UNROLL_MAX_SPHERES
+    pix = torch.from_numpy(ptk.ray_layout(width, height, blocked)[1]).to(device) if blocked else None
     kw = dict(width=width, height=height, max_depth=cfg.max_depth,
               direct_only=integrator == "dl", light_indices=scene.light_indices, rng=rng)
-    return scene_tab, cam_tab, ptk.init_pt_state(cfg, device), kw
+    return scene_tab, cam_tab, ptk.init_pt_state(cfg, device, blocked), pix, kw
 
 
 def compare_pass(scene_name, width, height, integrator, rng, device):
@@ -101,21 +132,21 @@ def compare_pass(scene_name, width, height, integrator, rng, device):
 
     from se195_raytracer_tpu_torch.kernels.pt_kernel import pt_multi_pass, pt_pass_reference
 
-    scene_tab, cam_tab, (s0, s1, acc), kw = pass_inputs(
+    scene_tab, cam_tab, (s0, s1, acc), pix, kw = pass_inputs(
         scene_name, width, height, integrator, rng, device)
-    k0, k1, kacc = pt_multi_pass(scene_tab, cam_tab, 0, s0, s1, acc, num_samples=1, **kw)
-    p0, p1, pacc = pt_pass_reference(scene_tab, cam_tab, 0, s0, s1, acc, num_samples=1, **kw)
-    r = width * height
-    a = kacc.reshape(3, -1)[:, :r].cpu().double()
-    b = pacc.reshape(3, -1)[:, :r].cpu().double()
+    k0, k1, kacc = pt_multi_pass(scene_tab, cam_tab, 0, s0, s1, acc, pix, num_samples=1, **kw)
+    p0, p1, pacc = pt_pass_reference(scene_tab, cam_tab, 0, s0, s1, acc, pix, num_samples=1, **kw)
+    # Every lane, pad lanes too: both sides run the same lanes.
+    a = kacc.reshape(3, -1).cpu().double()
+    b = pacc.reshape(3, -1).cpu().double()
     check(bool(torch.isfinite(a).all()), f"{integrator}/{rng}: kernel output not finite")
     mismatch = 1.0 - torch.isclose(a, b, rtol=CLOSE_RTOL, atol=CLOSE_ATOL).double().mean().item()
     # The counter RNG keeps its key in s0; its draw counter is s1.
     sk, sp = (k1, p1) if rng == "counter" else (k0, p0)
-    state_mismatch = (sk[:r].cpu() != sp[:r].cpu()).double().mean().item()
+    state_mismatch = (sk.cpu() != sp.cpu()).double().mean().item()
     max_err = (a - b).abs().max().item()
     mean_a, mean_b = a.mean().item(), b.mean().item()
-    print(f"  {integrator}/{rng} {width}x{height}: max_abs_err {max_err:.6g}, "
+    print(f"  {scene_name} {integrator}/{rng} {width}x{height}: max_abs_err {max_err:.6g}, "
           f"mismatch {mismatch:.4%}, state mismatch {state_mismatch:.4%}, "
           f"mean {mean_a:.6f} vs plain {mean_b:.6f}")
     check(mismatch <= MAX_MISMATCH, f"{integrator}/{rng}: {mismatch:.3%} components differ")
@@ -129,48 +160,62 @@ def check_resume(scene_name, width, height, device):
     """1 + 1 spp through the kernel equals 2 spp in one launch."""
     from se195_raytracer_tpu_torch.kernels.pt_kernel import pt_multi_pass
 
-    scene_tab, cam_tab, (s0, s1, acc), kw = pass_inputs(
+    scene_tab, cam_tab, (s0, s1, acc), pix, kw = pass_inputs(
         scene_name, width, height, "pt", "mwc", device)
-    a = pt_multi_pass(scene_tab, cam_tab, 0, s0, s1, acc, num_samples=1, **kw)
-    a = pt_multi_pass(scene_tab, cam_tab, 1, *a, num_samples=1, **kw)
-    b = pt_multi_pass(scene_tab, cam_tab, 0, s0, s1, acc, num_samples=2, **kw)
+    a = pt_multi_pass(scene_tab, cam_tab, 0, s0, s1, acc, pix, num_samples=1, **kw)
+    a = pt_multi_pass(scene_tab, cam_tab, 1, *a, pix, num_samples=1, **kw)
+    b = pt_multi_pass(scene_tab, cam_tab, 0, s0, s1, acc, pix, num_samples=2, **kw)
     err = (a[2] - b[2]).abs().max().item()
-    print(f"  resume 1+1 vs 2 spp: max_abs_err {err:.3g}")
+    print(f"  {scene_name} resume 1+1 vs 2 spp: max_abs_err {err:.3g}")
     check(err <= RESUME_TOL, f"progressive resume differs by {err}")
     check(bool((a[0] == b[0]).all() and (a[1] == b[1]).all()), "resume: RNG states differ")
 
 
-def run_main_path(scene_name, width, height, spp, device, out_png):
-    """The user's entry points: the CLI, then driver.render.render. Returns
-    (image, config, launches by kernel)."""
+def zero_counters():
+    from se195_raytracer_tpu_torch.kernels import pt_kernel as ptk
+    from se195_raytracer_tpu_torch.kernels import whitted_kernel as wk
+
+    for fn in (ptk.pt_multi_pass, ptk.pt_blocked_pass, wk.whitted_trace_cuda,
+               wk.whitted_frame_cuda):
+        fn.launches = 0
+
+
+def read_counters():
+    from se195_raytracer_tpu_torch.kernels import pt_kernel as ptk
+    from se195_raytracer_tpu_torch.kernels import whitted_kernel as wk
+
+    return {"K1": ptk.pt_multi_pass.launches, "K2": ptk.pt_blocked_pass.launches,
+            "K3": wk.whitted_trace_cuda.launches + wk.whitted_frame_cuda.launches}
+
+
+def run_main_path(scene_name, width, height, spp, out_png, want):
+    """The user's entry points: the CLI, then driver.render.render. ``want``
+    names the kernel that must run once per call. Returns (image, config,
+    launches by kernel)."""
     import torch
 
     from se195_raytracer_tpu_torch import cli
     from se195_raytracer_tpu_torch.core.config import RenderConfig
     from se195_raytracer_tpu_torch.driver.render import render
-    from se195_raytracer_tpu_torch.kernels.pt_kernel import pt_multi_pass
 
     argv = ["render", "--scene", scene_name, "--width", str(width), "--height",
             str(height), "--spp", str(spp), "--out", out_png]
-    if device != "cuda":
-        argv += ["--device", device]
     spec = get_spec(scene_name)
     cfg = RenderConfig(width=width, height=height, spp=spp, seed=SEED)
-    pt_multi_pass.launches = 0
+    zero_counters()
     rc = cli.main(argv)
+    after_cli = read_counters()
+    img, _ = render(spec.to_scene(), spec.to_camera(), cfg)
+    launches = read_counters()
     check(rc == 0, f"cli render exited {rc}")
-    after_cli = pt_multi_pass.launches
-    dev = None if device == "cuda" else device
-    img, _ = render(spec.to_scene(dev), spec.to_camera(dev), cfg, device=dev)
-    launches = {"pt_multi_pass": pt_multi_pass.launches}
     with open(out_png, "rb") as f:
         check(f.read(8) == b"\x89PNG\r\n\x1a\n", "cli output is not a PNG")
     check(tuple(img.shape) == (height, width, 3), f"image shape {tuple(img.shape)}")
     check(bool(torch.isfinite(img).all()), "main-path image not finite")
     check(img.mean().item() > 0.0, "main-path image is black")
-    if device == "cuda":
-        check(after_cli == 1 and launches["pt_multi_pass"] == 2,
-              f"K1 launches: cli {after_cli}, total {launches['pt_multi_pass']} (want 1 per call)")
+    others = {k: v for k, v in launches.items() if k != want}
+    check(after_cli[want] == 1 and launches[want] == 2 and not any(others.values()),
+          f"launches: cli {after_cli}, total {launches} (want one {want} per call, nothing else)")
     return img, cfg, launches
 
 
@@ -206,53 +251,50 @@ def host_ms(fn, reps=REPS):
         fn()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
-    return statistics.median(times)
+    return statistics.median(times), times
 
 
-def main() -> int:
+def bound(ops, nbytes, kernel_ms, label):
+    ops_ms = ops / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    print(f"  {label} bound: {ops:.6g} FP32 ops -> {ops_ms:.5f} ms at 67 TFLOP/s; "
+          f"{nbytes} B -> {bytes_ms:.5f} ms at 3.35 TB/s; "
+          f"bound {bound_ms:.5f} ms by {bound_by}, share {bound_ms / kernel_ms:.2%}")
+    return bound_ms, bound_by
+
+
+def k1_section():
+    """Phases 2-4: K1 parity, the Cornell main path, K1 timing."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("error: no CUDA device; chip_smoke.py runs on a GPU", file=sys.stderr)
-        return 1
-    from se195_raytracer_tpu_torch.core.config import RenderConfig
     from se195_raytracer_tpu_torch.driver.render import render
-    from se195_raytracer_tpu_torch.kernels._build import build_all
     from se195_raytracer_tpu_torch.kernels import pt_kernel as ptk
     from se195_raytracer_tpu_torch.kernels.pt_kernel import pt_multi_pass, pt_pass_reference
 
-    kind = torch.cuda.get_device_name(0)
-    card = card_line()
-    print(f"card: {card}")
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
-
-    # 1. Build.
-    t0 = time.perf_counter()
-    logs = build_all(["pt_kernel"])
-    print(f"[1] built K1 in {time.perf_counter() - t0:.2f} s")
-    for line in logs["pt_kernel"].splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            print("  ptxas:", line.strip())
-
-    # 2. Kernel against plain on the card.
     print("[2] K1 against pt_pass_reference on the card")
     errs = [compare_pass(SCENE, WIDTH, HEIGHT, integ, rng, "cuda")
             for integ, rng in (("pt", "mwc"), ("dl", "mwc"), ("pt", "counter"))]
     check_resume(SCENE, WIDTH, HEIGHT, "cuda")
     torch.cuda.synchronize()
 
-    # 3. The main path at full width.
     print(f"[3] main path: {SCENE} {WIDTH}x{HEIGHT} spp={SPP}")
     with tempfile.TemporaryDirectory() as tmp:
         img, cfg, launches = run_main_path(
-            SCENE, WIDTH, HEIGHT, SPP, "cuda", os.path.join(tmp, "cornell.png"))
+            SCENE, WIDTH, HEIGHT, SPP, os.path.join(tmp, "cornell.png"), "K1")
     torch.cuda.synchronize()
     print(f"  launches during the main path: {launches}")
-    scene_tab, cam_tab, (s0, s1, acc), kw = pass_inputs(
+    scene_tab, cam_tab, (s0, s1, acc), _, kw = pass_inputs(
         SCENE, WIDTH, HEIGHT, "pt", "mwc", "cuda")
     live = []
+
+    def count_live(o, d, mask, max_t):
+        if max_t is None:
+            live.append(mask.sum())
+
     _, _, pacc = pt_pass_reference(scene_tab, cam_tab, 0, s0, s1, acc,
-                                   num_samples=SPP, live_bounces=live, **kw)
+                                   num_samples=SPP, on_sweep=count_live, **kw)
     r = WIDTH * HEIGHT
     plain_mean = pacc.reshape(3, -1)[:, :r].mean().item()
     kernel_mean = img.mean().item()
@@ -262,8 +304,7 @@ def main() -> int:
     check(abs(kernel_mean - plain_mean) <= MAIN_MEAN_RTOL * abs(plain_mean),
           "8-spp image mean differs from the plain version by more than 1%")
 
-    # 4. Timing at the main path's shapes.
-    print("[4] timing")
+    print("[4] K1 timing")
     spec = get_spec(SCENE)
     scene, camera = spec.to_scene(), spec.to_camera()
     kernel_ms, kernel_all = median_ms(
@@ -272,27 +313,16 @@ def main() -> int:
         lambda: pt_pass_reference(scene_tab, cam_tab, 0, s0, s1, acc, num_samples=SPP, **kw),
         reps=5)
     torch.cuda.reset_peak_memory_stats()
-    e2e = []
-    render(scene, camera, cfg)[0].cpu()  # warm-up
-    for _ in range(REPS):
-        t = time.perf_counter()
-        render(scene, camera, cfg)[0].cpu()  # [H, W, 3] readback syncs
-        e2e.append((time.perf_counter() - t) * 1e3)
-    e2e_ms = statistics.median(e2e)
+    e2e_ms, e2e = host_ms(lambda: render(scene, camera, cfg)[0].cpu())
     peak_mem = torch.cuda.max_memory_allocated()
     # Where the end-to-end time goes: render_cuda's steps, one at a time.
-    seed_ms = host_ms(lambda: ptk.init_pt_state(cfg, "cuda"))
-    pack_ms = host_ms(lambda: (ptk.pack_scene(scene.to("cuda")), ptk.pack_camera(
+    seed_ms, _ = host_ms(lambda: ptk.init_pt_state(cfg, "cuda"))
+    pack_ms, _ = host_ms(lambda: (ptk.pack_scene(scene.to("cuda")), ptk.pack_camera(
         ptk.update_camera(camera.to("cuda"), WIDTH, HEIGHT))))
-    readback_ms = host_ms(lambda: img.cpu())
+    readback_ms, _ = host_ms(lambda: img.cpu())
     rays = WIDTH * HEIGHT * SPP
-    ops = 25.0 * rays + live_bounces * ops_per_bounce(
+    ops = OPS_CAMERA * rays + live_bounces * ops_per_bounce(
         scene.num_spheres, len(scene.light_indices))
-    state_bytes = STATE_BYTES_PER_LANE * s0.shape[0]
-    ops_ms = ops / PEAK_FP32_FLOPS * 1e3
-    bytes_ms = state_bytes / PEAK_BYTES_PER_S * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
     print(f"  K1 kernel: {kernel_ms:.4f} ms per {SPP}-spp call (reps {['%.4f' % t for t in kernel_all]}), "
           f"{rays / kernel_ms * 1e3:.4g} rays/s")
     print(f"  end to end incl. readback: {e2e_ms:.4f} ms (reps {['%.3f' % t for t in e2e]}), "
@@ -302,18 +332,13 @@ def main() -> int:
           f"rest of e2e {e2e_ms - seed_ms - pack_ms - kernel_ms - readback_ms:.4f} ms")
     print(f"  plain version: {plain_ms:.3f} ms (reps {['%.3f' % t for t in plain_all]})")
     print(f"  peak memory allocated: {peak_mem} B")
-    print(f"  bound: {ops:.4g} FP32 ops -> {ops_ms:.5f} ms at 67 TFLOP/s; "
-          f"{state_bytes} B -> {bytes_ms:.5f} ms at 3.35 TB/s; "
-          f"bound {bound_ms:.5f} ms by {bound_by}, share {bound_ms / kernel_ms:.2%}")
-    print("  library_ms: n/a (no single PyTorch call computes a path-tracing pass)")
-
-    print(card)
-    print(json.dumps({"kernels": [{
+    bound_ms, bound_by = bound(ops, STATE_BYTES_PER_LANE * s0.shape[0], kernel_ms, "K1")
+    return {
         "name": "K1 pt_multi_pass",
         "route": "cuda",
         "source": "se195_raytracer_tpu_torch/kernels/csrc/pt_kernel.cu",
         "replaces": "se195_raytracer_tpu/kernels/pt_kernel.py:200",
-        "launches": launches["pt_multi_pass"],
+        "launches": launches["K1"],
         "max_abs_err": max(e[0] for e in errs),
         "mismatch_frac": max(e[1] for e in errs),
         "state_mismatch_frac": max(e[2] for e in errs),
@@ -328,7 +353,237 @@ def main() -> int:
         "peak_mem_bytes": peak_mem,
         "breakdown_ms": {"seed": seed_ms, "pack": pack_ms, "kernel": kernel_ms,
                          "readback": readback_ms},
-    }]}))
+    }
+
+
+def k2_section():
+    """Phases 5-6: K2 parity and cull on/off, the complex783 main path, K2
+    timing and its culled-work bound."""
+    import torch
+
+    from se195_raytracer_tpu_torch.driver.render import render
+    from se195_raytracer_tpu_torch.kernels import pt_kernel as ptk
+
+    print(f"[5] K2 against pt_pass_reference on the card: {COMPLEX} {WIDTH}x{HEIGHT}, 1 spp")
+    errs = [compare_pass(COMPLEX, WIDTH, HEIGHT, "pt", rng, "cuda") for rng in ("mwc", "counter")]
+    check_resume(COMPLEX, WIDTH, HEIGHT, "cuda")
+    scene_tab, cam_tab, (s0, s1, acc), pix, kw = pass_inputs(
+        COMPLEX, WIDTH, HEIGHT, "pt", "mwc", "cuda")
+    on = ptk.pt_blocked_pass(scene_tab, cam_tab, 0, s0, s1, acc, pix, num_samples=1, cull=True, **kw)
+    off = ptk.pt_blocked_pass(scene_tab, cam_tab, 0, s0, s1, acc, pix, num_samples=1, cull=False, **kw)
+    same = all(bool(torch.equal(a, b)) for a, b in zip(on, off))
+    print(f"  cull on vs off, 1 spp: acc, s0, s1 bitwise equal: {same}")
+    check(same, "K2 with the cull differs from K2 without it")
+
+    print(f"[6] main path: {COMPLEX} {WIDTH}x{HEIGHT} spp={SPP}")
+    with tempfile.TemporaryDirectory() as tmp:
+        img, cfg, launches = run_main_path(
+            COMPLEX, WIDTH, HEIGHT, SPP, os.path.join(tmp, "complex.png"), "K2")
+    torch.cuda.synchronize()
+    print(f"  launches during the main path: {launches}")
+    hook, work = ptk.culled_work_counter(scene_tab)
+    t = time.perf_counter()
+    _, _, pacc = ptk.pt_pass_reference(scene_tab, cam_tab, 0, s0, s1, acc, pix,
+                                       num_samples=SPP, on_sweep=hook, **kw)
+    torch.cuda.synchronize()
+    print(f"  plain version with the work count: {time.perf_counter() - t:.2f} s; work {work}")
+    plain_mean = pacc.mean().item()  # no pad lanes at 512x512
+    kernel_mean = img.mean().item()
+    print(f"  image mean {kernel_mean:.6f} vs plain {plain_mean:.6f}")
+    check(abs(kernel_mean - plain_mean) <= MAIN_MEAN_RTOL * abs(plain_mean),
+          "complex 8-spp image mean differs from the plain version by more than 1%")
+
+    print("  K2 timing")
+    spec = get_spec(COMPLEX)
+    scene, camera = spec.to_scene(), spec.to_camera()
+    kernel_ms, kernel_all = median_ms(lambda: ptk.pt_blocked_pass(
+        scene_tab, cam_tab, 0, s0, s1, acc, pix, num_samples=SPP, **kw), reps=5)
+    nocull_ms, nocull_all = median_ms(lambda: ptk.pt_blocked_pass(
+        scene_tab, cam_tab, 0, s0, s1, acc, pix, num_samples=SPP, cull=False, **kw), reps=3)
+    plain_ms, plain_all = median_ms(lambda: ptk.pt_pass_reference(
+        scene_tab, cam_tab, 0, s0, s1, acc, pix, num_samples=SPP, **kw), reps=2)
+    torch.cuda.reset_peak_memory_stats()
+    e2e_ms, e2e = host_ms(lambda: render(scene, camera, cfg)[0].cpu(), reps=5)
+    peak_mem = torch.cuda.max_memory_allocated()
+    rays = WIDTH * HEIGHT * SPP
+    ops = (OPS_CAMERA * rays + OPS_SHADE * work["nearest_rays"]
+           + OPS_SHADOW_SETUP * work["shadow_rays"]
+           + OPS_SPHERE_NEAREST * work["nearest_tests"]
+           + OPS_SPHERE_SHADOW * work["shadow_tests"] + OPS_BOUND * work["bound_tests"])
+    nb = scene.num_spheres // ptk.SPHERE_BLOCK
+    full = (scene.num_spheres * (work["nearest_rays"] + work["shadow_rays"]))
+    print(f"  K2 kernel (cull on): {kernel_ms:.4f} ms per {SPP}-spp call "
+          f"(reps {['%.4f' % t for t in kernel_all]}), {rays / kernel_ms * 1e3:.4g} rays/s")
+    print(f"  K2 kernel (cull off): {nocull_ms:.4f} ms (reps {['%.4f' % t for t in nocull_all]})")
+    print(f"  end to end incl. readback: {e2e_ms:.4f} ms (reps {['%.3f' % t for t in e2e]}), "
+          f"{rays / e2e_ms * 1e3:.4g} rays/s")
+    print(f"  plain version: {plain_ms:.3f} ms (reps {['%.3f' % t for t in plain_all]})")
+    print(f"  peak memory allocated: {peak_mem} B")
+    print(f"  culled sweep: {work['nearest_tests'] + work['shadow_tests']} sphere tests of "
+          f"{full} unculled ({(work['nearest_tests'] + work['shadow_tests']) / full:.2%}), "
+          f"{work['bound_tests']} bound tests, nb {nb}")
+    bound_ms, bound_by = bound(ops, STATE_BYTES_PER_LANE * s0.shape[0], kernel_ms, "K2")
+    return {
+        "name": "K2 pt_blocked_pass",
+        "route": "cuda",
+        "source": "se195_raytracer_tpu_torch/kernels/csrc/pt_kernel.cu",
+        "replaces": "se195_raytracer_tpu/kernels/pt_kernel.py:366",
+        "launches": launches["K2"],
+        "max_abs_err": max(e[0] for e in errs),
+        "mismatch_frac": max(e[1] for e in errs),
+        "state_mismatch_frac": max(e[2] for e in errs),
+        "cull_bitwise": same,
+        "ms": kernel_ms,
+        "nocull_ms": nocull_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "e2e_ms": e2e_ms,
+        "e2e_rays_per_s": rays / e2e_ms * 1e3,
+        "kernel_rays_per_s": rays / kernel_ms * 1e3,
+        "peak_mem_bytes": peak_mem,
+        "work": work,
+    }
+
+
+def k3_section():
+    """Phases 7-8: K3 against the plain tracer, the Whitted main path, K3
+    timing."""
+    import torch
+
+    from se195_raytracer_tpu_torch import cli
+    from se195_raytracer_tpu_torch.core.config import RenderConfig
+    from se195_raytracer_tpu_torch.kernels import whitted_kernel as wk
+    from se195_raytracer_tpu_torch.models import whitted as W
+    from se195_raytracer_tpu_torch.scenes.whitted_scenes import WHITTED_SCENES
+
+    w, h, ss, depth = WHITTED["width"], WHITTED["height"], WHITTED["supersample"], WHITTED["trace_depth"]
+    print(f"[7] K3 against the plain tracer: {w}x{h}, {ss}x{ss}, depth {depth}")
+    max_err, works = 0.0, {}
+    plain_tile = 1 << 20  # rays per chunk of the plain tracer
+    for name in ("room", "grid"):
+        scene = WHITTED_SCENES[name]("cuda")
+        o, d = W.whitted_camera_rays_device(w, h, ss, device="cuda")
+        tiles = wk.rays_to_tiles(o, d)
+        for bias in (0.0, 0.005):
+            work = {}
+            plain = W.render_whitted_scene(scene, w, h, ss, depth, bias, ray_tile=plain_tile,
+                                           work=work)
+            works[(name, bias)] = work
+            frame = wk.whitted_frame_cuda(scene, width=w, height=h, supersample=ss,
+                                          trace_depth=depth, hit_bias=bias)
+            acc = wk.whitted_trace_cuda(scene, tiles, trace_depth=depth, hit_bias=bias)
+            via_rays = wk.tiles_to_frame(acc, w, h, ss)
+            for entry, img in (("frame", frame), ("rays", via_rays)):
+                err = (img - plain).abs().max().item()
+                bad = (~torch.isclose(img, plain, rtol=W_RTOL, atol=W_ATOL)).sum().item()
+                print(f"  {name} hit_bias {bias} {entry} entry: max_abs_err {err:.6g}, "
+                      f"{bad} components outside (rtol {W_RTOL}, atol {W_ATOL}), "
+                      f"mean {img.mean().item():.6f} vs plain {plain.mean().item():.6f}")
+                check(bool(torch.isfinite(img).all()), f"K3 {name} {entry}: not finite")
+                check(bad == 0, f"K3 {name} hit_bias {bias} {entry} entry: {bad} components differ")
+                max_err = max(max_err, err)
+            print(f"    live work (plain): {work}")
+
+    print(f"[8] main path: whitted room {w}x{h} {ss}x{ss}")
+    cfg = RenderConfig(width=w, height=h, supersample=ss, trace_depth=depth)
+    with tempfile.TemporaryDirectory() as tmp:
+        out_png = os.path.join(tmp, "room.png")
+        zero_counters()
+        rc = cli.main(["render", "--integrator", "whitted", "--scene", "room", "--width", str(w),
+                       "--height", str(h), "--supersample", str(ss), "--trace-depth", str(depth),
+                       "--out", out_png])
+        after_cli = read_counters()
+        img = W.render_whitted(WHITTED_SCENES["room"](), cfg)
+        launches = read_counters()
+        check(rc == 0, f"cli render exited {rc}")
+        with open(out_png, "rb") as f:
+            check(f.read(8) == b"\x89PNG\r\n\x1a\n", "cli output is not a PNG")
+    print(f"  launches during the main path: {launches}")
+    check(after_cli["K3"] == 1 and launches["K3"] == 2 and not launches["K1"] and not launches["K2"],
+          f"launches: cli {after_cli}, total {launches} (want one K3 per call, nothing else)")
+    check(tuple(img.shape) == (h, w, 3) and bool(torch.isfinite(img).all()), "whitted image")
+    check(img.max().item() > 1.0, "whitted image is black")
+
+    print("  K3 timing (room, hit_bias 0)")
+    scene = WHITTED_SCENES["room"]("cuda")
+    kernel_ms, kernel_all = median_ms(lambda: wk.whitted_frame_cuda(
+        scene, width=w, height=h, supersample=ss, trace_depth=depth))
+    plain_ms, plain_all = median_ms(lambda: W.render_whitted_scene(
+        scene, w, h, ss, depth, ray_tile=plain_tile), reps=2)
+    torch.cuda.reset_peak_memory_stats()
+    e2e_ms, e2e = host_ms(lambda: W.render_whitted(scene, cfg).cpu())
+    peak_mem = torch.cuda.max_memory_allocated()
+    work = works[("room", 0.0)]
+    planes = sum(1 for t in scene.ptype if t == 0)
+    spheres = scene.num_prims - planes
+    sphere_lights = sum(1 for i in scene.light_indices if scene.ptype[i] != 0)
+    ops = (work["nodes"] * (W_OPS_NODE + planes * W_OPS_PLANE + spheres * W_OPS_SPHERE)
+           + work["hit_nodes"] * len(scene.light_indices) * W_OPS_LIGHT
+           + work["shadow_tests"] * min(W_OPS_PLANE, W_OPS_SPHERE))
+    rays = w * h * ss * ss
+    print(f"  K3 kernel (frame entry): {kernel_ms:.4f} ms (reps {['%.4f' % t for t in kernel_all]}), "
+          f"{rays / kernel_ms * 1e3:.4g} rays/s")
+    print(f"  end to end incl. readback: {e2e_ms:.4f} ms (reps {['%.3f' % t for t in e2e]})")
+    print(f"  plain version: {plain_ms:.3f} ms (reps {['%.3f' % t for t in plain_all]})")
+    print(f"  peak memory allocated: {peak_mem} B")
+    print(f"  live nodes {work['nodes']} ({work['nodes'] / rays:.3f} per ray), lit nodes "
+          f"{work['hit_nodes']}, shadow tests {work['shadow_tests']}; {planes} planes, "
+          f"{spheres} spheres, {sphere_lights} sphere lights")
+    bound_ms, bound_by = bound(ops, h * w * 3 * 4, kernel_ms, "K3")
+    return {
+        "name": "K3 whitted_frame_cuda / whitted_trace_cuda",
+        "route": "cuda",
+        "source": "se195_raytracer_tpu_torch/kernels/csrc/whitted_kernel.cu",
+        "replaces": "se195_raytracer_tpu/kernels/whitted_kernel.py:121",
+        "launches": launches["K3"],
+        "max_abs_err": max_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "e2e_ms": e2e_ms,
+        "kernel_rays_per_s": rays / kernel_ms * 1e3,
+        "peak_mem_bytes": peak_mem,
+        "work": work,
+    }
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("error: no CUDA device; chip_smoke.py runs on a GPU", file=sys.stderr)
+        return 1
+    from se195_raytracer_tpu_torch.kernels._build import build_all, sources
+
+    kind = torch.cuda.get_device_name(0)
+    card = card_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+
+    t0 = time.perf_counter()
+    logs = build_all(sources())
+    print(f"[1] built {', '.join(sources())} in {time.perf_counter() - t0:.2f} s")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                print(f"  ptxas {name}:", line.strip())
+
+    t = time.perf_counter()
+    kernels = [k1_section()]
+    print(f"  (K1 phases {time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    kernels.append(k2_section())
+    print(f"  (K2 phases {time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    kernels.append(k3_section())
+    print(f"  (K3 phases {time.perf_counter() - t:.1f} s)")
+
+    print(card)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,8 +1,10 @@
 """Command-line interface (twin of se195_raytracer_tpu/cli.py for the
-smallpt family):
+smallpt and Whitted families):
 
     python -m se195_raytracer_tpu_torch.cli render --scene cornell \
         --width 512 --height 512 --spp 8 --integrator pt --out out.png
+    python -m se195_raytracer_tpu_torch.cli render --integrator whitted \
+        --scene room --width 800 --height 600 --out room.png
     python -m se195_raytracer_tpu_torch.cli scenes
 
 Renders run on the CUDA device unless ``--device cpu`` is given.
@@ -14,24 +16,38 @@ import argparse
 import sys
 import time
 
-PORTED_INTEGRATORS = ("pt", "dl")
+PORTED_INTEGRATORS = ("pt", "dl", "whitted")
+# Per-integrator default scene (reference defaults: Cornell for smallpt,
+# the 17-prim room for 3.2.0x, Scene::InitScene's room for raytracer5).
+DEFAULT_SCENE = {"pt": "cornell", "dl": "cornell", "whitted": "room", "whitted5": "room5"}
+
+
+def _whitted_scene(name: str, device):
+    """The named Whitted (3.2.0x) scene, or None with an error printed."""
+    from se195_raytracer_tpu_torch.scenes.whitted_scenes import WHITTED_SCENES
+
+    if name not in WHITTED_SCENES:
+        print(f"error: unknown whitted scene {name!r} (known: {', '.join(sorted(WHITTED_SCENES))})",
+              file=sys.stderr)
+        return None
+    return WHITTED_SCENES[name](device)
 
 
 def cmd_render(args) -> int:
+    import numpy as np
     import torch
 
     from se195_raytracer_tpu_torch.core.config import RenderConfig
-    from se195_raytracer_tpu_torch.driver.render import render
     from se195_raytracer_tpu_torch.io.image import write_image
-    from se195_raytracer_tpu_torch.ops.tonemap import to_srgb_bytes
-    from se195_raytracer_tpu_torch.scenes.registry import SCENES, get_scene, list_scenes
+    from se195_raytracer_tpu_torch.scenes.registry import SCENES, list_scenes
 
     if args.integrator not in PORTED_INTEGRATORS:
         print(f"error: integrator {args.integrator!r} is not yet ported", file=sys.stderr)
         return 2
-    if args.scene not in SCENES:
+    scene_name = args.scene or DEFAULT_SCENE[args.integrator]
+    if args.integrator != "whitted" and scene_name not in SCENES:
         print(
-            f"error: unknown scene {args.scene!r} (known: {', '.join(list_scenes())}); "
+            f"error: unknown scene {scene_name!r} (known: {', '.join(list_scenes())}); "
             "the .scn parser is not yet ported",
             file=sys.stderr,
         )
@@ -41,21 +57,41 @@ def cmd_render(args) -> int:
         height=args.height,
         spp=args.spp,
         max_depth=args.max_depth,
-        integrator=args.integrator,
+        integrator=args.integrator if args.integrator in ("pt", "dl") else "pt",
         seed=args.seed,
         ray_tile=args.ray_tile,
         use_kernel=args.kernel,
+        supersample=args.supersample,
+        trace_depth=args.trace_depth,
+        hit_bias=args.hit_bias,
     )
-    spec = get_scene(args.scene)
     t0 = time.perf_counter()
-    img, _ = render(spec.to_scene(args.device), spec.to_camera(args.device), cfg, device=args.device)
-    img_u8 = to_srgb_bytes(img).cpu().numpy()
+    if args.integrator == "whitted":
+        from se195_raytracer_tpu_torch.models.whitted import render_whitted
+
+        scene = _whitted_scene(scene_name, args.device)
+        if scene is None:
+            return 2
+        img = render_whitted(scene, cfg, device=args.device)
+        img_u8 = np.clip(img.cpu().numpy(), 0, 255).astype(np.uint8)
+        rays = args.width * args.height * args.supersample ** 2
+        what = f"ss={args.supersample}"
+    else:
+        from se195_raytracer_tpu_torch.driver.render import render
+        from se195_raytracer_tpu_torch.ops.tonemap import to_srgb_bytes
+        from se195_raytracer_tpu_torch.scenes.registry import get_scene
+
+        spec = get_scene(scene_name)
+        img, _ = render(spec.to_scene(args.device), spec.to_camera(args.device), cfg,
+                        device=args.device)
+        img_u8 = to_srgb_bytes(img).cpu().numpy()
+        rays = args.width * args.height * args.spp
+        what = f"spp={args.spp}"
     if img.is_cuda:
         torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    rays = args.width * args.height * args.spp
     print(
-        f"rendered {args.scene} {args.width}x{args.height} spp={args.spp} "
+        f"rendered {scene_name} {args.width}x{args.height} {what} "
         f"in {elapsed:.3f}s ({rays / elapsed / 1e3:.1f}K samples/sec)",
         file=sys.stderr,
     )
@@ -78,7 +114,8 @@ def main(argv=None) -> int:
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("render", help="render a scene to an image file")
-    p.add_argument("--scene", default="cornell", help="registry name")
+    p.add_argument("--scene", default=None,
+                   help="registry name (default: per integrator, cornell / room)")
     p.add_argument("--width", type=int, default=640)
     p.add_argument("--height", type=int, default=480)
     p.add_argument("--spp", type=int, default=8)
@@ -87,17 +124,26 @@ def main(argv=None) -> int:
         "--integrator",
         choices=["pt", "dl", "whitted", "whitted5"],
         default="pt",
-        help="pt=RadiancePathTracing, dl=RadianceDirectLighting "
-        "(whitted and whitted5 are not yet ported)",
+        help="pt=RadiancePathTracing, dl=RadianceDirectLighting, "
+        "whitted=Whitted reflect/refract tree (3.2.0x); whitted5 is not yet ported",
     )
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--ray-tile", type=int, default=None)
+    p.add_argument("--supersample", type=int, default=3,
+                   help="whitted: subpixel rays per axis (reference 3x3, "
+                   "raytracer_kernel.cl:291-292)")
+    p.add_argument("--trace-depth", type=int, default=5,
+                   help="whitted: reflect/refract tree depth (TRACEDEPTH 5, "
+                   "raytracer_kernel.cl:8)")
+    p.add_argument("--hit-bias", type=float, default=0.0,
+                   help="whitted: 3.2.03 sphere near-hit slack (0.005, "
+                   "raytracer_kernel.cl:128); default 0 = 3.2.02/CPU")
     p.add_argument(
         "--kernel",
         action=argparse.BooleanOptionalAction,
         default=True,
-        help="run the passes in the CUDA kernel (on the CPU: its plain "
-        "version); --no-kernel runs the plain PyTorch integrator",
+        help="run the passes in the CUDA kernels (on the CPU: their plain "
+        "versions); --no-kernel runs the plain PyTorch integrators",
     )
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
     p.add_argument("--out", default="out.png", help=".png/.ppm/.bmp path ('' to skip)")

@@ -3,6 +3,12 @@
 Each function takes the numpy arrays that ``np.asarray`` gives of the JAX
 objects (``Scene`` fields, ``Camera`` fields, the ``render_pallas`` state),
 so the port never imports JAX.
+
+A ``render_pallas`` state has the shapes of ``render_cuda``'s for every
+scene. Its lanes are in the layout both packages take for the scene
+(``kernels/pt_kernel.ray_layout``): the identity for at most 96 spheres,
+the blocked layout of K2 above, so a state carries across as it is and the
+pixels of a blocked state are ``acc.reshape(3, -1)[:, inv]``.
 """
 
 from __future__ import annotations

@@ -26,8 +26,11 @@ class RenderConfig:
     # Run the hand-written CUDA kernel path (kernels/pt_kernel.render_cuda);
     # False runs the plain PyTorch integrator (driver/render.render_steps).
     use_kernel: bool = True
-    # Whitted-family knobs, kept for config parity with the JAX package
-    # (those integrators are not ported yet).
+    # Whitted-family (3.2.0x) knobs, read by models/whitted.render_whitted.
+    # Defaults are the reference's compile-time constants
+    # (raytracer_kernel.cl:8 TRACEDEPTH 5, :291-292 3x3 supersampling);
+    # hit_bias 0.005 is the 3.2.03 near-hit slack (:128), 0.0 the
+    # 3.2.02/CPU semantics.
     supersample: int = 3
     trace_depth: int = 5
     hit_bias: float = 0.0

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``se195_raytracer_tpu_torch/_build/`` (listed
-in .gitignore) at first use, then loaded with ``ctypes``. The library's
-file name carries a hash of the source and the flags, so an edited source
-is rebuilt and a stale library is never loaded. Nothing here runs at
-import time: the CPU tests import every module of the port.
+in .gitignore), then loaded with ``ctypes``. The first ``load`` builds every
+source, one ``nvcc`` each, all started together. The library's file name
+carries a hash of the source and the flags, so an edited source is rebuilt
+and a stale library is never loaded. Nothing here runs at import time: the
+CPU tests import every module of the port.
 """
 
 from __future__ import annotations
@@ -28,6 +29,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# Per-source flags. K3 rounds every a * b + c twice, as its plain version's
+# separate tensor ops do, so that the two agree to the ulp on the geometry.
+EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"whitted_kernel": ("-fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -43,9 +47,18 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def sources() -> Tuple[str, ...]:
+    """The name of every ``csrc/*.cu``."""
+    return tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
+
+
+def flags(name: str) -> Tuple[str, ...]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags(name)).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -65,7 +78,7 @@ def build_all(names: Iterable[str]) -> Dict[str, str]:
             continue
         nvcc = nvcc or _nvcc()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp,
@@ -84,9 +97,10 @@ def build_all(names: Iterable[str]) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library for ``csrc/<name>.cu``; the first call builds
+    every source that has no current library."""
     lib = _LIBS.get(name)
     if lib is None:
-        build_all([name])
+        build_all(sources())
         lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return lib

@@ -1,12 +1,15 @@
-// K1 on Hopper: the fused smallpt path-tracing / direct-lighting pass.
+// K1 and K2 on Hopper: the fused smallpt path-tracing / direct-lighting
+// pass, for small scenes (K1) and for large ones through a blocked, culled
+// sphere sweep (K2).
 //
-// Replaces the TPU kernel se195_raytracer_tpu/kernels/pt_kernel.py
-// _make_kernel(loop_scene=False), driven there by _pass_impl (one
-// pallas_call per pass) under pt_multi_pass (a lax.scan over the spp
-// passes). Computes, per lane: jittered camera ray, up to max_depth bounces
-// of a reverse-order nearest-hit sweep, next-event estimation with shadow
-// rays, the DIFF / SPEC / REFR branches, the MWC or counter RNG advanced
-// only where the reference draws, and the running mean
+// K1 replaces the TPU kernel se195_raytracer_tpu/kernels/pt_kernel.py
+// _make_kernel(loop_scene=False); K2 replaces _make_kernel(loop_scene=True)
+// (_culled_sweep, block_possible, block_bounds). Both are driven there by
+// _pass_impl (one pallas_call per pass) under pt_multi_pass (a lax.scan over
+// the spp passes). Computes, per lane: jittered camera ray, up to max_depth
+// bounces of a reverse-order nearest-hit sweep, next-event estimation with
+// shadow rays, the DIFF / SPEC / REFR branches, the MWC or counter RNG
+// advanced only where the reference draws, and the running mean
 // acc = (acc * samp + rad) * (1 / (samp + 1)) once per pass.
 //
 // What bounds it on this card: FP32 compute. A bounce costs about 15 ops
@@ -14,20 +17,31 @@
 // per sphere for each light, and the only device-memory traffic is the
 // per-lane state (s0, s1, acc: 20 bytes in, 20 bytes out per call).
 // What the design does about it:
-//   * the [12, N] scene table, the camera row and the light list sit in
-//     shared memory, loaded once per block; every thread reads the same
-//     sphere at the same time, so the reads are broadcasts;
+//   * the [12, N] scene table, the camera row and the light list (and for
+//     K2 the [4, nb] block bounds) sit in shared memory, loaded once per
+//     block; every thread reads the same sphere at the same time, so the
+//     reads are broadcasts;
 //   * the whole spp loop runs inside the kernel with the ray, throughput,
 //     RNG state and accumulator in registers: no device-memory traffic per
 //     bounce or per pass;
 //   * a lane whose path ended (miss, light, or a DL diffuse hit) leaves the
 //     bounce loop. This is exact: in the TPU kernel a dead lane's bounce is
 //     the identity, since every draw there is masked by a subset of the
-//     live lanes and every update is gated on them.
+//     live lanes and every update is gated on them;
+//   * K2 sweeps the spheres N-1 .. 0 as the remainder N-1 .. nb*16 first,
+//     then blocks nb-1 .. 0 of kBlock = 16, and skips a block whose
+//     inflated bounding sphere this lane's ray cannot hit (per ray, on the
+//     nearest sweep and on every shadow sweep). The bounds are inflated
+//     (x1.001 + 0.01) so that rounding can never reject a block holding a
+//     true hit, and the order of the spheres that are tested is unchanged:
+//     the cull is exact. Within a warp SIMT runs the union of its lanes'
+//     surviving blocks, which amounts to a warp-level cull.
 //
 // One thread per lane over all Rp lanes, pad lanes included, so the state
-// stays comparable with the JAX package's. Lane id is the absolute pixel
-// id (the identity layout of ray_layout).
+// stays comparable with the JAX package's. K1's lane id is the absolute
+// pixel id (the identity layout of ray_layout); K2 reads the pixel id of
+// its lane from the pix table (the blocked layout: one 16 x 128 lane tile
+// is one 64 x 32 image block; pad lanes hold pixel id W*H, camera y = -1).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC. Never --use_fast_math (approximate sinf/cosf/sqrtf and
@@ -38,8 +52,10 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreadsK1 = 128;
+constexpr int kThreadsK2 = 256;
 constexpr int kRows = 12;  // cx cy cz rad ex ey ez cr cg cb refl emissive
+constexpr int kBlock = 16;  // SPHERE_BLOCK: spheres per culled block
 constexpr float kEps = 0.01f;        // geomfunc.h:29 EPSILON
 constexpr float kInf = 1e20f;        // geomfunc.h:80 initial nearest distance
 constexpr float kTwoPi = 6.2831855f;   // float32(2 pi)
@@ -86,21 +102,87 @@ __device__ __forceinline__ float sphere_t(const float* sc, int n, int j,
   return t1 > kEps ? t1 : (t2 > kEps ? t2 : 0.0f);
 }
 
+// block_possible (JAX pt_kernel.py:239-255) for one ray: can it hit block
+// t's bounding sphere ahead of its origin? bd: [4, nb] cx cy cz rad.
+__device__ __forceinline__ bool block_possible(const float* bd, int nb, int t,
+                                               float ox, float oy, float oz,
+                                               float dx, float dy, float dz) {
+  const float opx = bd[0 * nb + t] - ox;
+  const float opy = bd[1 * nb + t] - oy;
+  const float opz = bd[2 * nb + t] - oz;
+  const float rb = bd[3 * nb + t];
+  const float b = opx * dx + opy * dy + opz * dz;
+  const float det = b * b - (opx * opx + opy * opy + opz * opz) + rb * rb;
+  return det >= 0.0f && (b + sqrtf(fmaxf(det, 0.0f))) > 0.0f;
+}
+
+// The nearest hit (geomfunc.h:82-89): spheres N-1 .. 0, strict <, so the
+// larger index wins a tie. BLOCKED: the remainder N-1 .. nb*16 first, then
+// blocks nb-1 .. 0, each skipped when culled (JAX _culled_sweep :366-410).
+template <bool BLOCKED>
+__device__ __forceinline__ void nearest(const float* sc, int n,
+                                        const float* bd, int nb, bool cull,
+                                        float ox, float oy, float oz,
+                                        float dx, float dy, float dz,
+                                        float& tb, int& id) {
+  tb = kInf;
+  id = 0;
+  const int m = BLOCKED ? nb * kBlock : 0;
+  for (int j = n - 1; j >= m; --j) {
+    const float t = sphere_t(sc, n, j, ox, oy, oz, dx, dy, dz);
+    if (t != 0.0f && t < tb) {
+      tb = t;
+      id = j;
+    }
+  }
+  if constexpr (BLOCKED) {
+    for (int blk = nb - 1; blk >= 0; --blk) {
+      if (cull && !block_possible(bd, nb, blk, ox, oy, oz, dx, dy, dz)) continue;
+#pragma unroll
+      for (int k = kBlock - 1; k >= 0; --k) {
+        const int j = blk * kBlock + k;
+        const float t = sphere_t(sc, n, j, ox, oy, oz, dx, dy, dz);
+        if (t != 0.0f && t < tb) {
+          tb = t;
+          id = j;
+        }
+      }
+    }
+  }
+}
+
 // IntersectP (geomfunc.h:94-110): any sphere hit strictly closer than maxt.
+// BLOCKED: the same culled order as `nearest`; the bound test ignores maxt,
+// a conservative superset.
+template <bool BLOCKED>
 __device__ __forceinline__ bool any_hit(const float* sc, int n,
+                                        const float* bd, int nb, bool cull,
                                         float ox, float oy, float oz,
                                         float dx, float dy, float dz,
                                         float maxt) {
-  for (int j = n - 1; j >= 0; --j) {
+  const int m = BLOCKED ? nb * kBlock : 0;
+  for (int j = n - 1; j >= m; --j) {
     const float t = sphere_t(sc, n, j, ox, oy, oz, dx, dy, dz);
     if (t != 0.0f && t < maxt) return true;
+  }
+  if constexpr (BLOCKED) {
+    for (int blk = nb - 1; blk >= 0; --blk) {
+      if (cull && !block_possible(bd, nb, blk, ox, oy, oz, dx, dy, dz)) continue;
+#pragma unroll
+      for (int k = kBlock - 1; k >= 0; --k) {
+        const float t = sphere_t(sc, n, blk * kBlock + k, ox, oy, oz, dx, dy, dz);
+        if (t != 0.0f && t < maxt) return true;
+      }
+    }
   }
   return false;
 }
 
-template <bool DIRECT_ONLY, int RNG>
-__global__ void __launch_bounds__(kThreads)
+template <bool DIRECT_ONLY, int RNG, bool BLOCKED>
+__global__ void __launch_bounds__(BLOCKED ? kThreadsK2 : kThreadsK1)
 pt_pass_kernel(const float* __restrict__ scene, int n,
+               const float* __restrict__ bounds, int nb, int cull_flag,
+               const int* __restrict__ pix,
                const int* __restrict__ lights, int n_lights,
                const float* __restrict__ cam, int start_sample,
                int num_samples, const uint32_t* s0_in,
@@ -108,16 +190,19 @@ pt_pass_kernel(const float* __restrict__ scene, int n,
                uint32_t* s1_out, float* acc_out, int rp, int width,
                int height, float inv_w, float inv_h, int max_depth) {
   extern __shared__ float smem[];
-  float* sc = smem;             // [kRows, n]
-  float* cs = smem + kRows * n;  // [12] orig, dir, x, y
+  float* sc = smem;                     // [kRows, n]
+  float* bd = smem + kRows * n;         // [4, nb] (K2 only; nb = 0 for K1)
+  float* cs = bd + 4 * nb;              // [12] orig, dir, x, y
   int* ls = reinterpret_cast<int*>(cs + 12);  // [n_lights]
   for (int i = threadIdx.x; i < kRows * n; i += blockDim.x) sc[i] = scene[i];
+  for (int i = threadIdx.x; i < 4 * nb; i += blockDim.x) bd[i] = bounds[i];
   if (threadIdx.x < 12) cs[threadIdx.x] = cam[threadIdx.x];
   for (int i = threadIdx.x; i < n_lights; i += blockDim.x) ls[i] = lights[i];
   __syncthreads();
 
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= rp) return;
+  const bool cull = cull_flag != 0;
 
   uint32_t s0 = s0_in[lane];
   uint32_t s1 = s1_in[lane];
@@ -126,8 +211,9 @@ pt_pass_kernel(const float* __restrict__ scene, int n,
   float acc_b = acc_in[2 * rp + lane];
   // Pixel coordinates with the framebuffer v-flip: row r is camera
   // y = height - 1 - r (rendering_kernel.cl:60-63). Pad lanes compute too.
-  const float px = (float)(lane % width);
-  const float py = (float)((height - 1) - lane / width);
+  const int p = BLOCKED ? pix[lane] : lane;
+  const float px = (float)(p % width);
+  const float py = (float)((height - 1) - p / width);
 
   for (int pass = 0; pass < num_samples; ++pass) {
     // GenerateCameraRay (rendering_kernel.cl:29-51): 2 draws.
@@ -150,16 +236,9 @@ pt_pass_kernel(const float* __restrict__ scene, int n,
 
     // Bounce loop (geomfunc.h:182-336).
     for (int depth = 0; depth < max_depth; ++depth) {
-      // Nearest hit, N-1 .. 0 with strict < (geomfunc.h:82-89).
-      float tb = kInf;
-      int id = 0;
-      for (int j = n - 1; j >= 0; --j) {
-        const float t = sphere_t(sc, n, j, ox, oy, oz, dx, dy, dz);
-        if (t != 0.0f && t < tb) {
-          tb = t;
-          id = j;
-        }
-      }
+      float tb;
+      int id;
+      nearest<BLOCKED>(sc, n, bd, nb, cull, ox, oy, oz, dx, dy, dz, tb, id);
       if (!(tb < kInf)) break;  // miss: the path ends
 
       const float hx = ox + tb * dx;
@@ -218,7 +297,8 @@ pt_pass_kernel(const float* __restrict__ scene, int n,
           const float wo = sdx * ux + sdy * uy + sdz * uz;
           const float wi = sdx * nlx + sdy * nly + sdz * nlz;
           if (wo <= 0.0f && wi > 0.0f &&
-              !any_hit(sc, n, hx, hy, hz, sdx, sdy, sdz, ln - kEps)) {
+              !any_hit<BLOCKED>(sc, n, bd, nb, cull, hx, hy, hz, sdx, sdy,
+                                sdz, ln - kEps)) {
             const float s =
                 kFourPi * lrad * lrad * wi * (-wo) / (ln_s * ln_s);
             ld_r += s * sc[4 * n + li];
@@ -328,28 +408,69 @@ pt_pass_kernel(const float* __restrict__ scene, int n,
   acc_out[2 * rp + lane] = acc_b;
 }
 
-template <bool DIRECT_ONLY, int RNG>
-cudaError_t launch(const float* scene, int n, const int* lights, int n_lights,
-                   const float* cam, int start_sample, int num_samples,
-                   const uint32_t* s0_in, const uint32_t* s1_in,
-                   const float* acc_in, uint32_t* s0_out, uint32_t* s1_out,
-                   float* acc_out, int rp, int width, int height, float inv_w,
-                   float inv_h, int max_depth, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (kRows * n + 12) + sizeof(int) * n_lights;
-  const int blocks = (rp + kThreads - 1) / kThreads;
-  pt_pass_kernel<DIRECT_ONLY, RNG><<<blocks, kThreads, smem, stream>>>(
-      scene, n, lights, n_lights, cam, start_sample, num_samples, s0_in,
-      s1_in, acc_in, s0_out, s1_out, acc_out, rp, width, height, inv_w,
-      inv_h, max_depth);
+struct PassArgs {
+  const float* scene;
+  int n;
+  const float* bounds;
+  int nb;
+  int cull;
+  const int* pix;
+  const int* lights;
+  int n_lights;
+  const float* cam;
+  int start_sample;
+  int num_samples;
+  const uint32_t* s0_in;
+  const uint32_t* s1_in;
+  const float* acc_in;
+  uint32_t* s0_out;
+  uint32_t* s1_out;
+  float* acc_out;
+  int rp;
+  int width;
+  int height;
+  float inv_w;
+  float inv_h;
+  int max_depth;
+};
+
+template <bool DIRECT_ONLY, int RNG, bool BLOCKED>
+cudaError_t launch(const PassArgs& a, cudaStream_t stream) {
+  const int threads = BLOCKED ? kThreadsK2 : kThreadsK1;
+  const size_t smem = sizeof(float) * (kRows * a.n + 4 * a.nb + 12) +
+                      sizeof(int) * a.n_lights;
+  const int blocks = (a.rp + threads - 1) / threads;
+  pt_pass_kernel<DIRECT_ONLY, RNG, BLOCKED><<<blocks, threads, smem, stream>>>(
+      a.scene, a.n, a.bounds, a.nb, a.cull, a.pix, a.lights, a.n_lights,
+      a.cam, a.start_sample, a.num_samples, a.s0_in, a.s1_in, a.acc_in,
+      a.s0_out, a.s1_out, a.acc_out, a.rp, a.width, a.height, a.inv_w,
+      a.inv_h, a.max_depth);
   return cudaGetLastError();
+}
+
+template <bool BLOCKED>
+int dispatch(const PassArgs& a, int direct_only, int rng_counter,
+             void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (direct_only) {
+    err = rng_counter ? launch<true, kCounter, BLOCKED>(a, st)
+                      : launch<true, kMwc, BLOCKED>(a, st);
+  } else {
+    err = rng_counter ? launch<false, kCounter, BLOCKED>(a, st)
+                      : launch<false, kMwc, BLOCKED>(a, st);
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes. scene: [12, n] float32; lights:
+// Plain C entry points, bound with ctypes. scene: [12, n] float32; lights:
 // [n_lights] int32 ascending; cam: [12] float32; s0/s1: [rp] uint32;
-// acc: [3, rp] float32. In and out may not alias. Returns cudaGetLastError()
-// after the launch (0 = cudaSuccess).
+// acc: [3, rp] float32. In and out may not alias. Each returns
+// cudaGetLastError() after the launch (0 = cudaSuccess).
+
+// K1: lane id = pixel id; every sphere swept.
 extern "C" int pt_multi_pass_cuda(
     const float* scene, int n, const int* lights, int n_lights,
     const float* cam, int start_sample, int num_samples,
@@ -357,17 +478,26 @@ extern "C" int pt_multi_pass_cuda(
     uint32_t* s0_out, uint32_t* s1_out, float* acc_out, int rp, int width,
     int height, float inv_w, float inv_h, int max_depth, int direct_only,
     int rng_counter, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PT_LAUNCH(D, R)                                                     \
-  launch<D, R>(scene, n, lights, n_lights, cam, start_sample, num_samples, \
-               s0_in, s1_in, acc_in, s0_out, s1_out, acc_out, rp, width,   \
-               height, inv_w, inv_h, max_depth, st)
-  cudaError_t err;
-  if (direct_only) {
-    err = rng_counter ? PT_LAUNCH(true, kCounter) : PT_LAUNCH(true, kMwc);
-  } else {
-    err = rng_counter ? PT_LAUNCH(false, kCounter) : PT_LAUNCH(false, kMwc);
-  }
-#undef PT_LAUNCH
-  return static_cast<int>(err);
+  const PassArgs a{scene, n, nullptr, 0, 0, nullptr, lights, n_lights, cam,
+                   start_sample, num_samples, s0_in, s1_in, acc_in, s0_out,
+                   s1_out, acc_out, rp, width, height, inv_w, inv_h,
+                   max_depth};
+  return dispatch<false>(a, direct_only, rng_counter, stream);
+}
+
+// K2: bounds: [4, nb] float32 (block_bounds), nb = n / 16; pix: [rp] int32
+// pixel id per lane; cull != 0 skips the blocks a ray cannot hit.
+extern "C" int pt_blocked_pass_cuda(
+    const float* scene, int n, const float* bounds, int nb, int cull,
+    const int* pix, const int* lights, int n_lights, const float* cam,
+    int start_sample, int num_samples, const uint32_t* s0_in,
+    const uint32_t* s1_in, const float* acc_in, uint32_t* s0_out,
+    uint32_t* s1_out, float* acc_out, int rp, int width, int height,
+    float inv_w, float inv_h, int max_depth, int direct_only,
+    int rng_counter, void* stream) {
+  const PassArgs a{scene, n, bounds, nb, cull, pix, lights, n_lights, cam,
+                   start_sample, num_samples, s0_in, s1_in, acc_in, s0_out,
+                   s1_out, acc_out, rp, width, height, inv_w, inv_h,
+                   max_depth};
+  return dispatch<true>(a, direct_only, rng_counter, stream);
 }

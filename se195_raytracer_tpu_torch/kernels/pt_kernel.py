@@ -1,14 +1,17 @@
-"""K1: the fused path-tracing pass, as a hand-written CUDA kernel and its
-plain PyTorch version (twin of se195_raytracer_tpu/kernels/pt_kernel.py).
+"""K1 and K2: the fused path-tracing pass, as hand-written CUDA kernels and
+their plain PyTorch version (twin of se195_raytracer_tpu/kernels/pt_kernel.py).
 
 ``pt_multi_pass`` runs ``num_samples`` progressive passes in one launch of
-``csrc/pt_kernel.cu``; ``pt_pass_reference`` computes the same passes with
-``generate_camera_rays`` + ``radiance`` over the same lanes and state, and
-is what the wrapper runs for tensors on the CPU (and what the tests and
-``chip_smoke.py`` hold the kernel against). ``render_cuda`` is the twin of
-``render_pallas``: its state ``(s0 [Rp], s1 [Rp], acc [3, Rp/128, 128],
-sample)`` has the JAX package's layout and pad-lane seeding, so a state can
-be carried across between the two packages (``convert.py``).
+``csrc/pt_kernel.cu``: K1 for scenes of at most ``UNROLL_MAX_SPHERES``
+spheres, K2 (``pt_blocked_pass``, a sweep in blocks of ``SPHERE_BLOCK``
+spheres that skips the blocks a ray cannot hit) above. ``pt_pass_reference``
+computes the same passes with ``generate_camera_rays`` + ``radiance`` over the
+same lanes and state, and is what the wrappers run for tensors on the CPU
+(and what the tests and ``chip_smoke.py`` hold the kernels against).
+``render_cuda`` is the twin of ``render_pallas``: its state ``(s0 [Rp],
+s1 [Rp], acc [3, Rp/128, 128], sample)`` has the JAX package's layout, lane
+order and pad-lane seeding, so a state can be carried across between the
+two packages (``convert.py``).
 
 Scene table layout (``pack_scene``): rows are
 [cx, cy, cz, rad, ex, ey, ez, colr, colg, colb, refl, emissive], one column
@@ -18,7 +21,8 @@ per sphere.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,19 +32,24 @@ from se195_raytracer_tpu_torch.core.types import (
     Camera,
     CameraBasis,
     Scene,
+    dot3,
     resolve_device,
+    sqrt_rn,
     update_camera,
 )
 from se195_raytracer_tpu_torch.models.smallpt import generate_camera_rays, radiance
+from se195_raytracer_tpu_torch.ops.intersect import sphere_intersect
 
 LANES = 128
 # Lanes are padded to whole 16 x 128 tiles, as in the JAX package, so the
 # two packages' states have the same shape.
-TILE = 16 * LANES
-# The JAX package runs larger scenes through its blocked-sweep kernel (K2),
-# which is not ported yet.
+SUBLANES = 16
+TILE = SUBLANES * LANES
+# Above this many spheres the pass runs in K2, the blocked sweep.
 UNROLL_MAX_SPHERES = 96
-# The kernel keeps the scene in shared memory without opting in to more
+# Spheres per block of K2's sweep; one bounding sphere per block.
+SPHERE_BLOCK = 16
+# The kernels keep the scene in shared memory without opting in to more
 # than the default 48 KB.
 _MAX_SMEM_BYTES = 48 * 1024
 
@@ -71,11 +80,60 @@ def pack_camera(basis: CameraBasis) -> torch.Tensor:
     return torch.cat([basis.orig, basis.dir, basis.x, basis.y]).reshape(1, 12)
 
 
-def ray_layout(width: int, height: int) -> int:
-    """Padded lane count Rp of the identity layout: lane i is pixel i for
-    i < width*height, and the lanes past it are pad lanes."""
+def block_bounds(scene_tab: torch.Tensor) -> torch.Tensor:
+    """[4, nb] (cx, cy, cz, rad) bounding spheres of the contiguous
+    ``SPHERE_BLOCK``-sized index ranges of the scene table (the fractal
+    generator emits spheres depth first, so a range is a tight subtree).
+    The radius is inflated, x1.001 + 0.01, so that rounding in the bound
+    test can never reject a block that holds a true hit: the culled sweep
+    gives the same bits as the full one. Bitwise equal to the JAX
+    package's ``block_bounds``."""
+    n = scene_tab.shape[1]
+    nb = n // SPHERE_BLOCK
+    m = nb * SPHERE_BLOCK
+    c3 = scene_tab[0:3, :m].reshape(3, nb, SPHERE_BLOCK)
+    rad = scene_tab[3, :m].reshape(nb, SPHERE_BLOCK)
+    lo = (c3 - rad[None]).amin(dim=-1)
+    hi = (c3 + rad[None]).amax(dim=-1)
+    bc = 0.5 * (lo + hi)  # [3, nb]
+    dc = c3 - bc[:, :, None]
+    dist = sqrt_rn(dc[0] * dc[0] + dc[1] * dc[1] + dc[2] * dc[2])
+    br = (dist + rad).amax(dim=-1)
+    br = br * float(np.float32(1.001)) + float(np.float32(0.01))
+    return torch.cat([bc, br[None]], dim=0).contiguous()
+
+
+@functools.lru_cache(maxsize=32)
+def ray_layout(width: int, height: int, blocked: bool = False):
+    """Lane <-> pixel layout of the kernels' state, as the JAX package lays
+    it out (``ray_layout`` there, 16 x 128 lane tiles).
+
+    Returns (rp, pix, inv) as host numpy: ``rp`` = padded lane count,
+    ``pix[lane]`` = absolute pixel id (pad lanes get ``width*height``, one
+    past the end), ``inv[pixel]`` = the lane holding that pixel (None for
+    the identity layout, where lane == pixel and the image is a slice).
+    ``blocked`` (K2's layout) makes each 16 x 128 lane tile one 64 x 32
+    image block, so neighbouring lanes trace neighbouring rays."""
     r = width * height
-    return (r + TILE - 1) // TILE * TILE
+    if not blocked:
+        rp = (r + TILE - 1) // TILE * TILE
+        return rp, np.arange(rp, dtype=np.int32), None
+    th_ = 32
+    tw_ = TILE // th_
+    gw = (width + tw_ - 1) // tw_
+    gh = (height + th_ - 1) // th_
+    rp = gw * gh * TILE
+    lanes = np.arange(rp)
+    ti, wi = lanes // TILE, lanes % TILE
+    wy, wx = wi // tw_, wi % tw_
+    tr, tc = ti // gw, ti % gw
+    px = tc * tw_ + wx
+    py = tr * th_ + wy
+    valid = (px < width) & (py < height)
+    pix = np.where(valid, py * width + px, r).astype(np.int32)
+    inv = np.empty(r, np.int64)
+    inv[pix[valid]] = lanes[valid]
+    return rp, pix, inv
 
 
 def pt_pass_reference(
@@ -85,6 +143,7 @@ def pt_pass_reference(
     s0: torch.Tensor,
     s1: torch.Tensor,
     acc: torch.Tensor,
+    pix: Optional[torch.Tensor] = None,
     *,
     num_samples: int,
     width: int,
@@ -93,12 +152,15 @@ def pt_pass_reference(
     direct_only: bool,
     light_indices: Tuple[int, ...],
     rng: str = "mwc",
-    live_bounces: Optional[list] = None,
+    on_sweep: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K1 on the same inputs: ``num_samples``
-    passes of camera rays + ``radiance`` over all Rp lanes, each followed by
-    the kernel's running mean ``acc = (acc * samp + rad) * (1 / (samp + 1))``.
-    ``live_bounces`` is passed to ``radiance``. Returns (s0, s1, acc)."""
+    """Plain PyTorch version of K1 and K2 on the same inputs:
+    ``num_samples`` passes of camera rays + ``radiance`` over all Rp lanes,
+    each followed by the kernels' running mean
+    ``acc = (acc * samp + rad) * (1 / (samp + 1))``. ``pix`` is the pixel id
+    of each lane (None: lane == pixel); a pad lane's id ``width*height``
+    gives camera y = -1, as in the JAX kernel. ``on_sweep`` is passed to
+    ``radiance``. Returns (s0, s1, acc)."""
     scene = Scene(
         center=scene_tab[0:3].T,
         radius=scene_tab[3],
@@ -110,22 +172,69 @@ def pt_pass_reference(
     cam = cam_tab.reshape(12)
     basis = CameraBasis(orig=cam[0:3], dir=cam[3:6], x=cam[6:9], y=cam[9:12])
     rp = s0.shape[0]
-    lane = torch.arange(rp, dtype=torch.int64, device=s0.device)
-    xs = lane % width
-    ys = (height - 1) - lane // width
+    if pix is None:
+        pix = torch.arange(rp, dtype=torch.int64, device=s0.device)
+    pix = pix.to(torch.int64)
+    xs = pix % width
+    ys = (height - 1) - pix // width
     state = (s0, s1)
     for i in range(num_samples):
         o, d, state = generate_camera_rays(basis, state, width, height, xs, ys, rng)
-        rad, state = radiance(
-            scene, o, d, state, max_depth, direct_only, rng, live_bounces
-        )
+        rad, state = radiance(scene, o, d, state, max_depth, direct_only, rng, on_sweep)
         samp = np.float32(start_sample + i)
         k2 = float(np.float32(1.0) / (samp + np.float32(1.0)))
         acc = (acc * float(samp) + rad.T.reshape(acc.shape)) * k2
     return state[0].to(torch.uint32), state[1].to(torch.uint32), acc
 
 
-def _check_cuda_inputs(scene_tab, cam_tab, s0, s1, acc, light_indices):
+def culled_work_counter(scene_tab: torch.Tensor) -> Tuple[Callable, Dict[str, int]]:
+    """A ``radiance`` ``on_sweep`` hook that counts the work K2's per-ray
+    culled sweep must do on each sweep the plain version runs, and the dict
+    it adds into: ``nearest_rays`` / ``shadow_rays`` (sweeps run),
+    ``nearest_tests`` / ``shadow_tests`` (sphere tests) and ``bound_tests``.
+
+    A nearest sweep tests every block bound and the spheres of the
+    remainder and of each block whose bound the ray can hit. A shadow sweep
+    stops at its first occluder in the sweep's order (remainder N-1 ..
+    nb*16, then blocks nb-1 .. 0), so it counts the bounds and spheres up to
+    that one."""
+    bounds = block_bounds(scene_tab)
+    n = scene_tab.shape[1]
+    nb = bounds.shape[1]
+    m = nb * SPHERE_BLOCK
+    work = dict(nearest_rays=0, shadow_rays=0, nearest_tests=0, shadow_tests=0, bound_tests=0)
+    scene = Scene(center=scene_tab[0:3].T, radius=scene_tab[3], emission=scene_tab[4:7].T,
+                  color=scene_tab[7:10].T, refl=scene_tab[10])
+
+    def hook(o, d, mask, max_t):
+        o, d = o[mask], d[mask]
+        rays = o.shape[0]
+        op = bounds[:3].T[None] - o[:, None, :]  # [R, nb, 3]
+        b = dot3(op, d[:, None, :])
+        det = b * b - dot3(op, op) + bounds[3] * bounds[3]
+        possible = (det >= 0.0) & ((b + sqrt_rn(torch.clamp(det, min=0.0))) > 0.0)  # [R, nb]
+        if max_t is None:
+            work["nearest_rays"] += rays
+            work["bound_tests"] += rays * nb
+            work["nearest_tests"] += rays * (n - m) + SPHERE_BLOCK * int(possible.sum())
+            return
+        work["shadow_rays"] += rays
+        t = sphere_intersect(scene, o, d)
+        occluder = (t != 0.0) & (t < max_t[mask][:, None])
+        tested = torch.cat(
+            [possible.repeat_interleave(SPHERE_BLOCK, dim=1),
+             torch.ones((rays, n - m), dtype=torch.bool, device=o.device)], dim=1)
+        found = occluder & tested
+        idx = torch.arange(n, device=o.device)
+        first = torch.where(found, idx, -1).amax(dim=1)  # -1: no occluder
+        work["shadow_tests"] += int((tested & (idx[None] >= first[:, None])).sum())
+        blk_last = torch.arange(nb, device=o.device) * SPHERE_BLOCK + (SPHERE_BLOCK - 1)
+        work["bound_tests"] += int((blk_last[None] >= first[:, None]).sum())
+
+    return hook, work
+
+
+def _check_cuda_inputs(scene_tab, cam_tab, s0, s1, acc, light_indices, extra_smem_floats=0):
     dev = s0.device
     for name, t, dtype in (
         ("scene_tab", scene_tab, torch.float32),
@@ -145,7 +254,7 @@ def _check_cuda_inputs(scene_tab, cam_tab, s0, s1, acc, light_indices):
         raise ValueError(f"state shapes {s0.shape}, {s1.shape}, {acc.shape} disagree")
     if scene_tab.shape[0] != 12 or cam_tab.numel() != 12:
         raise ValueError(f"scene_tab {tuple(scene_tab.shape)} / cam_tab {tuple(cam_tab.shape)}")
-    smem = 4 * (12 * n + 12 + len(light_indices))
+    smem = 4 * (12 * n + extra_smem_floats + 12 + len(light_indices))
     if smem > _MAX_SMEM_BYTES:
         raise ValueError(f"{n} spheres need {smem} B of shared memory (> {_MAX_SMEM_BYTES})")
     if any(not 0 <= i < n for i in light_indices):
@@ -159,6 +268,7 @@ def pt_multi_pass(
     s0: torch.Tensor,
     s1: torch.Tensor,
     acc: torch.Tensor,
+    pix: Optional[torch.Tensor] = None,
     *,
     num_samples: int,
     width: int,
@@ -168,72 +278,153 @@ def pt_multi_pass(
     light_indices: Tuple[int, ...],
     rng: str = "mwc",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``num_samples`` progressive passes in ONE launch of the K1 kernel.
+    """``num_samples`` progressive passes in ONE kernel launch: K1 (here) for
+    at most ``UNROLL_MAX_SPHERES`` spheres, else K2 (``pt_blocked_pass``,
+    which needs ``pix``). K1 takes the identity layout: ``pix`` must be None.
 
     Tensors on the CPU take ``pt_pass_reference``; tensors on a CUDA device
     launch the kernel on the current stream (or raise). Inputs are not
     modified: the kernel writes fresh (s0, s1, acc) tensors.
-    ``pt_multi_pass.launches`` counts kernel launches."""
+    ``pt_multi_pass.launches`` counts K1 launches."""
+    kw = dict(
+        num_samples=num_samples, width=width, height=height,
+        max_depth=max_depth, direct_only=direct_only,
+        light_indices=tuple(light_indices), rng=rng,
+    )
+    if scene_tab.shape[1] > UNROLL_MAX_SPHERES:
+        if pix is None:
+            raise ValueError("K2 needs the lane -> pixel table pix of ray_layout(blocked=True)")
+        return pt_blocked_pass(scene_tab, cam_tab, start_sample, s0, s1, acc, pix, **kw)
+    if pix is not None:
+        raise ValueError("K1 runs the identity layout: pass pix=None")
+    if s0.device.type == "cpu":
+        return pt_pass_reference(scene_tab, cam_tab, start_sample, s0, s1, acc, **kw)
+    _check_launch(s0, rng)
+    _check_cuda_inputs(scene_tab, cam_tab, s0, s1, acc, light_indices)
+    lib = _kernel_lib()
+    lights, outs = _lights_and_outputs(light_indices, s0, s1, acc)
+    err = lib.pt_multi_pass_cuda(
+        scene_tab.data_ptr(), scene_tab.shape[1], lights.data_ptr(), len(light_indices),
+        cam_tab.data_ptr(), int(start_sample), int(num_samples),
+        s0.data_ptr(), s1.data_ptr(), acc.data_ptr(), *(t.data_ptr() for t in outs),
+        *_frame_args(s0, width, height, max_depth, direct_only, rng),
+    )
+    if err != 0:
+        raise RuntimeError(f"pt_multi_pass_cuda launch failed: cudaError {err}")
+    pt_multi_pass.launches += 1
+    return outs
+
+
+pt_multi_pass.launches = 0
+
+
+def pt_blocked_pass(
+    scene_tab: torch.Tensor,
+    cam_tab: torch.Tensor,
+    start_sample: int,
+    s0: torch.Tensor,
+    s1: torch.Tensor,
+    acc: torch.Tensor,
+    pix: torch.Tensor,
+    *,
+    num_samples: int,
+    width: int,
+    height: int,
+    max_depth: int,
+    direct_only: bool,
+    light_indices: Tuple[int, ...],
+    rng: str = "mwc",
+    cull: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2: ``num_samples`` passes in ONE launch, for any number of spheres,
+    over the lanes of ``pix`` (int32, ``ray_layout(blocked=True)``). The
+    sweep runs in blocks of ``SPHERE_BLOCK``; ``cull`` skips a block whose
+    bound (``block_bounds``) the ray cannot hit, with the same result bits
+    as ``cull=False``. CPU tensors take ``pt_pass_reference``.
+    ``pt_blocked_pass.launches`` counts K2 launches."""
     kw = dict(
         num_samples=num_samples, width=width, height=height,
         max_depth=max_depth, direct_only=direct_only,
         light_indices=tuple(light_indices), rng=rng,
     )
     if s0.device.type == "cpu":
-        return pt_pass_reference(scene_tab, cam_tab, start_sample, s0, s1, acc, **kw)
+        return pt_pass_reference(scene_tab, cam_tab, start_sample, s0, s1, acc, pix, **kw)
+    _check_launch(s0, rng)
+    bounds = block_bounds(scene_tab)
+    nb = bounds.shape[1]
+    _check_cuda_inputs(scene_tab, cam_tab, s0, s1, acc, light_indices, extra_smem_floats=4 * nb)
+    if pix.device != s0.device or pix.dtype != torch.int32 or pix.shape != s0.shape:
+        raise ValueError(f"pix: need int32 [{s0.shape[0]}] on {s0.device}")
+    pix = pix.contiguous()
+    lib = _kernel_lib()
+    lights, outs = _lights_and_outputs(light_indices, s0, s1, acc)
+    err = lib.pt_blocked_pass_cuda(
+        scene_tab.data_ptr(), scene_tab.shape[1], bounds.data_ptr(), nb, int(cull),
+        pix.data_ptr(), lights.data_ptr(), len(light_indices),
+        cam_tab.data_ptr(), int(start_sample), int(num_samples),
+        s0.data_ptr(), s1.data_ptr(), acc.data_ptr(), *(t.data_ptr() for t in outs),
+        *_frame_args(s0, width, height, max_depth, direct_only, rng),
+    )
+    if err != 0:
+        raise RuntimeError(f"pt_blocked_pass_cuda launch failed: cudaError {err}")
+    pt_blocked_pass.launches += 1
+    return outs
+
+
+pt_blocked_pass.launches = 0
+
+
+def _check_launch(s0, rng):
     if s0.device.type != "cuda":
         raise ValueError(f"unsupported device {s0.device}")
     if rng not in ("mwc", "counter"):
         raise ValueError(f"unknown rng {rng!r}")
-    _check_cuda_inputs(scene_tab, cam_tab, s0, s1, acc, light_indices)
-    lib = _kernel_lib()
-    rp = s0.shape[0]
+
+
+def _lights_and_outputs(light_indices, s0, s1, acc):
     lights = torch.tensor(light_indices, dtype=torch.int32, device=s0.device)
-    s0_out = torch.empty_like(s0)
-    s1_out = torch.empty_like(s1)
-    acc_out = torch.empty_like(acc)
-    err = lib.pt_multi_pass_cuda(
-        scene_tab.data_ptr(), scene_tab.shape[1], lights.data_ptr(), len(light_indices),
-        cam_tab.data_ptr(), int(start_sample), int(num_samples),
-        s0.data_ptr(), s1.data_ptr(), acc.data_ptr(),
-        s0_out.data_ptr(), s1_out.data_ptr(), acc_out.data_ptr(),
-        rp, width, height,
+    return lights, (torch.empty_like(s0), torch.empty_like(s1), torch.empty_like(acc))
+
+
+def _frame_args(s0, width, height, max_depth, direct_only, rng):
+    """The trailing arguments the two C entry points share."""
+    return (
+        s0.shape[0], width, height,
         float(np.float32(1.0 / width)), float(np.float32(1.0 / height)),
         max_depth, int(direct_only), int(rng == "counter"),
         torch.cuda.current_stream(s0.device).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(f"pt_multi_pass_cuda launch failed: cudaError {err}")
-    pt_multi_pass.launches += 1
-    return s0_out, s1_out, acc_out
-
-
-pt_multi_pass.launches = 0
 
 
 def _kernel_lib() -> ctypes.CDLL:
     from se195_raytracer_tpu_torch.kernels._build import load
 
     lib = load("pt_kernel")
-    fn = lib.pt_multi_pass_cuda
-    if fn.argtypes is None:
+    if lib.pt_multi_pass_cuda.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, i, p, i, p, i, i, p, p, p, p, p, p, i, i, i, f, f, i, i, i, p]
-        fn.restype = ctypes.c_int
+        tail = [p, p, p, p, p, p, i, i, i, f, f, i, i, i, p]
+        lib.pt_multi_pass_cuda.argtypes = [p, i, p, i, p, i, i] + tail
+        lib.pt_blocked_pass_cuda.argtypes = [p, i, p, i, i, p, p, i, p, i, i] + tail
+        lib.pt_multi_pass_cuda.restype = lib.pt_blocked_pass_cuda.restype = ctypes.c_int
     return lib
 
 
-def init_pt_state(config, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Fresh (s0, s1, acc) over the Rp lanes. The real pixels are seeded
-    exactly as the plain path seeds them; the pad lanes get the inert seed
-    2 (the least valid MWC seed; for the counter RNG key = ctr = 2), as
-    render_pallas does."""
+def init_pt_state(config, device, blocked: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fresh (s0, s1, acc) over the Rp lanes of ``ray_layout``. The real
+    pixels are seeded exactly as the plain path seeds them and laid out in
+    lane order; the pad lanes get the inert seed 2 (the least valid MWC
+    seed; for the counter RNG key = ctr = 2), as render_pallas does."""
     r = config.width * config.height
-    rp = ray_layout(config.width, config.height)
+    rp, pix, _ = ray_layout(config.width, config.height, blocked)
     s0, s1 = init_state(config.rng, (r,), config.seed, device="cpu")
-    pad = torch.full((rp - r,), 2, dtype=torch.uint32)
+    pad = torch.full((max(rp - r, 1),), 2, dtype=torch.uint32)
+    if blocked:
+        lanes = torch.from_numpy(pix).to(torch.int64)
+        s0, s1 = torch.cat([s0, pad[:1]])[lanes], torch.cat([s1, pad[:1]])[lanes]
+    else:
+        s0, s1 = torch.cat([s0, pad[: rp - r]]), torch.cat([s1, pad[: rp - r]])
     acc = torch.zeros((3, rp // LANES, LANES), dtype=torch.float32, device=device)
-    return torch.cat([s0, pad]).to(device), torch.cat([s1, pad]).to(device), acc
+    return s0.to(device), s1.to(device), acc
 
 
 def render_cuda(
@@ -244,34 +435,34 @@ def render_cuda(
     state: Optional[PTState] = None,
     device=None,
 ):
-    """Progressive render through K1 (twin of ``render_pallas``).
+    """Progressive render through K1, or K2 above ``UNROLL_MAX_SPHERES``
+    spheres (twin of ``render_pallas``).
 
     Returns (image [H, W, 3] float32, (s0, s1, acc, sample) state). On a
     CUDA device the passes run in the kernel; on the CPU in its plain
     version. ``device=None`` means CUDA and raises if there is none."""
     if config.soft_edges > 0.0:
         raise NotImplementedError("soft_edges > 0 belongs to the differentiable slice")
-    if scene.num_spheres > UNROLL_MAX_SPHERES:
-        raise NotImplementedError(
-            f"{scene.num_spheres} spheres > {UNROLL_MAX_SPHERES}: the JAX package "
-            "renders these with its blocked-sweep kernel K2, not ported yet"
-        )
     device = resolve_device(device)
     scene, camera = scene.to(device), camera.to(device)
     w, h = config.width, config.height
     r = w * h
     spp = config.spp if num_samples is None else num_samples
+    blocked = scene.num_spheres > UNROLL_MAX_SPHERES
+    _, pix_np, inv_np = ray_layout(w, h, blocked)
     if state is None:
-        state = init_pt_state(config, device) + (0,)
+        state = init_pt_state(config, device, blocked) + (0,)
     s0, s1, acc, start = state
 
     scene_tab = pack_scene(scene)
     cam_tab = pack_camera(update_camera(camera, w, h))
+    pix = torch.from_numpy(pix_np).to(device) if blocked else None
     s0, s1, acc = pt_multi_pass(
-        scene_tab, cam_tab, start, s0, s1, acc,
+        scene_tab, cam_tab, start, s0, s1, acc, pix,
         num_samples=spp, width=w, height=h, max_depth=config.max_depth,
         direct_only=config.integrator == "dl",
         light_indices=scene.light_indices, rng=config.rng,
     )
-    img = acc.reshape(3, -1)[:, :r].T.reshape(h, w, 3)
-    return img, (s0, s1, acc, start + spp)
+    flat = acc.reshape(3, -1)
+    flat = flat[:, torch.from_numpy(inv_np).to(device)] if blocked else flat[:, :r]
+    return flat.T.reshape(h, w, 3), (s0, s1, acc, start + spp)

@@ -1,0 +1,207 @@
+"""K3: the Whitted reflect/refract tree tracer as a hand-written CUDA kernel
+(``csrc/whitted_kernel.cu``), twin of se195_raytracer_tpu/kernels/
+whitted_kernel.py.
+
+Two entries, as in the JAX package:
+``whitted_trace_cuda`` traces explicit ray tiles [6, Rp/128, 128] into
+acc [3, Rp/128, 128] (twin of ``whitted_trace_pallas_padded``), and
+``whitted_frame_cuda`` makes the camera rays in the kernel and returns the
+finished [H, W, 3] frame in 0..255 (twin of ``whitted_frame_pallas``).
+Tensors on the CPU take the plain version, ``models/whitted.py``
+(``whitted_trace`` and ``render_whitted_scene``), which is also what the
+tests and ``chip_smoke.py`` hold the kernel against. Each wrapper counts its
+launches in ``.launches``.
+
+Scene table (``pack_whitted_scene``): rows [0 type | 1-3 plane normal |
+4 plane depth | 5-7 center | 8 sq_radius | 9 r_radius | 10-12 color |
+13 refl | 14 diff | 15 spec | 16 refr | 17 refr_index], one column per
+primitive; the light flags go beside it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+
+from se195_raytracer_tpu_torch.core.types import resolve_device
+from se195_raytracer_tpu_torch.models.whitted import (
+    reduce_subsamples,
+    render_whitted_scene,
+    whitted_camera_row,
+    whitted_trace,
+    window_steps,
+)
+from se195_raytracer_tpu_torch.scenes.whitted_scenes import WhittedScene
+
+LANES = 128
+# Rays of the explicit entry are padded to whole 8 x 128 tiles, as the JAX
+# package pads them.
+TILE = 8 * LANES
+# Deepest tree the kernel's per-thread stack holds (kMaxDepth).
+MAX_TRACE_DEPTH = 8
+_MAX_SMEM_BYTES = 48 * 1024
+
+
+def pack_whitted_scene(scene: WhittedScene) -> torch.Tensor:
+    """[18, N] float32 primitive table (bitwise the JAX package's)."""
+    tarr = torch.tensor(scene.ptype, dtype=torch.float32, device=scene.device)[None, :]
+    return torch.cat(
+        [
+            tarr,
+            scene.normal.T,
+            scene.depth[None, :],
+            scene.center.T,
+            scene.sq_radius[None, :],
+            scene.r_radius[None, :],
+            scene.color.T,
+            scene.refl[None, :],
+            scene.diff[None, :],
+            scene.spec[None, :],
+            scene.refr[None, :],
+            scene.refr_index[None, :],
+        ],
+        dim=0,
+    ).contiguous()
+
+
+def _scene_args(scene: WhittedScene, trace_depth: int, hit_bias: float, extra_floats: int):
+    if not 0 <= trace_depth <= MAX_TRACE_DEPTH:
+        raise ValueError(f"trace_depth {trace_depth} outside 0..{MAX_TRACE_DEPTH}")
+    n = scene.num_prims
+    smem = 4 * (19 * n + extra_floats)
+    if smem > _MAX_SMEM_BYTES:
+        raise ValueError(f"{n} primitives need {smem} B of shared memory (> {_MAX_SMEM_BYTES})")
+    table = pack_whitted_scene(scene)
+    light = torch.tensor(scene.is_light, dtype=torch.int32, device=scene.device)
+    return table, light, (table.data_ptr(), light.data_ptr(), n,
+                          float(np.float32(hit_bias)), int(trace_depth))
+
+
+def whitted_trace_cuda(
+    scene: WhittedScene,
+    rays: torch.Tensor,
+    *,
+    trace_depth: int = 5,
+    hit_bias: float = 0.0,
+) -> torch.Tensor:
+    """Trace explicit rays [6, Rp/128, 128] (origin, direction planes) on
+    the scene's device; returns acc [3, Rp/128, 128], each ray's summed tree
+    color before the tone scale. CPU tensors take ``whitted_trace``."""
+    if rays.dim() != 3 or rays.shape[0] != 6 or rays.shape[2] != LANES:
+        raise ValueError(f"rays: need [6, rows, {LANES}], got {tuple(rays.shape)}")
+    if rays.device != scene.device or rays.dtype != torch.float32:
+        raise ValueError(f"rays: need float32 on {scene.device}, got {rays.dtype} on {rays.device}")
+    rp = rays.shape[1] * LANES
+    if rays.device.type == "cpu":
+        flat = rays.reshape(6, rp)
+        acc = whitted_trace(scene, flat[0:3].T, flat[3:6].T, trace_depth, hit_bias)
+        return acc.T.reshape(3, rays.shape[1], LANES)
+    if rays.device.type != "cuda":
+        raise ValueError(f"unsupported device {rays.device}")
+    rays = rays.contiguous()
+    table, light, args = _scene_args(scene, trace_depth, hit_bias, 0)
+    acc = torch.empty((3, rays.shape[1], LANES), dtype=torch.float32, device=rays.device)
+    lib = _kernel_lib()
+    err = lib.whitted_trace_cuda(*args, rays.data_ptr(), acc.data_ptr(), rp,
+                                 torch.cuda.current_stream(rays.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"whitted_trace_cuda launch failed: cudaError {err}")
+    whitted_trace_cuda.launches += 1
+    return acc
+
+
+whitted_trace_cuda.launches = 0
+
+
+def whitted_frame_cuda(
+    scene: WhittedScene,
+    cam_row: Optional[torch.Tensor] = None,
+    *,
+    width: int,
+    height: int,
+    supersample: int = 3,
+    trace_depth: int = 5,
+    hit_bias: float = 0.0,
+) -> torch.Tensor:
+    """Full frame on the scene's device: camera rays made in the kernel from
+    the ray index and ``cam_row`` ([12], ``whitted_camera_row``; None = the
+    reference's fixed camera), the subsamples reduced and tone-scaled there.
+    Returns [H, W, 3] float32 in 0..255. CPU tensors take
+    ``render_whitted_scene``."""
+    dev = scene.device
+    if cam_row is None:
+        cam_row = torch.from_numpy(whitted_camera_row())
+    cam_row = cam_row.to(device=dev, dtype=torch.float32).reshape(12).contiguous()
+    if dev.type == "cpu":
+        return render_whitted_scene(scene, width, height, supersample, trace_depth, hit_bias,
+                                    cam_row=cam_row)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    table, light, args = _scene_args(scene, trace_depth, hit_bias, 12)
+    frame = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
+    ss2 = supersample * supersample
+    lib = _kernel_lib()
+    err = lib.whitted_frame_cuda(
+        *args, cam_row.data_ptr(), width, height, supersample,
+        *window_steps(width, height), float(np.float32(256.0 / ss2)),
+        frame.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"whitted_frame_cuda launch failed: cudaError {err}")
+    whitted_frame_cuda.launches += 1
+    return frame
+
+
+whitted_frame_cuda.launches = 0
+
+
+def render_whitted_cuda(
+    scene: WhittedScene,
+    width: int = 800,
+    height: int = 600,
+    supersample: int = 3,
+    trace_depth: int = 5,
+    hit_bias: float = 0.0,
+    cam_row: Optional[torch.Tensor] = None,
+    device=None,
+) -> torch.Tensor:
+    """Full-frame Whitted render through K3 -> [H, W, 3] float32 in 0..255
+    (twin of ``render_whitted_pallas``). ``device=None`` means CUDA and
+    raises when no GPU is present; on the CPU the plain version runs."""
+    scene = scene.to(resolve_device(device))
+    return whitted_frame_cuda(scene, cam_row, width=width, height=height,
+                              supersample=supersample, trace_depth=trace_depth,
+                              hit_bias=hit_bias)
+
+
+def rays_to_tiles(o: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """[R, 3] origins and directions -> [6, Rp/128, 128] ray tiles, padded
+    with inert rays (o = d = 0, which hit nothing) to whole ``TILE``s, the
+    layout of the explicit-ray entry."""
+    r = o.shape[0]
+    rp = (r + TILE - 1) // TILE * TILE
+    rays = torch.zeros((6, rp), dtype=torch.float32, device=o.device)
+    rays[0:3, :r] = o.T
+    rays[3:6, :r] = d.T
+    return rays.reshape(6, rp // LANES, LANES)
+
+
+def tiles_to_frame(acc: torch.Tensor, width: int, height: int, supersample: int) -> torch.Tensor:
+    """acc [3, Rp/128, 128] of the camera rays -> [H, W, 3] frame in 0..255."""
+    r = width * height * supersample * supersample
+    return reduce_subsamples(acc.reshape(3, -1)[:, :r].T, width, height, supersample)
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    from se195_raytracer_tpu_torch.kernels._build import load
+
+    lib = load("whitted_kernel")
+    if lib.whitted_trace_cuda.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.whitted_trace_cuda.argtypes = [p, p, i, f, i, p, p, i, p]
+        lib.whitted_frame_cuda.argtypes = [p, p, i, f, i, p, i, i, i, f, f, f, f, f, p, p]
+        lib.whitted_trace_cuda.restype = lib.whitted_frame_cuda.restype = ctypes.c_int
+    return lib

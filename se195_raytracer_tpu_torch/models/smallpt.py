@@ -10,7 +10,7 @@ data-dependent number of draws per pixel.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,6 +74,7 @@ def sample_lights(
     nl: torch.Tensor,
     draw_mask: torch.Tensor,
     rng: str = "mwc",
+    on_sweep: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, MWCState]:
     """Next-event estimation over all emissive spheres — geomfunc.h:112-165.
 
@@ -81,7 +82,7 @@ def sample_lights(
     rejection; ``draw_mask`` gates the advance to lanes on this code path.
     The reference evaluates ``UniformSampleSphere(GetRandom(), GetRandom())``
     right to left, so the FIRST draw is u2 and the SECOND u1.
-    Returns (Ld [R, 3], new_state)."""
+    ``on_sweep`` is ``radiance``'s hook. Returns (Ld [R, 3], new_state)."""
     draw = next_masked(rng)
     ld = torch.zeros_like(hit_point)
     for li in scene.light_indices:
@@ -98,13 +99,18 @@ def sample_lights(
         s = FOUR_PI * scene.radius[li] * scene.radius[li] * wi * (-wo) / (len_safe * len_safe)
         occluded = intersect_any(scene, hit_point, sdir, length - EPSILON)
         wrong_half = wo > 0.0  # sample on the far half of the light sphere
+        if on_sweep is not None:
+            on_sweep(hit_point, sdir, ~wrong_half & (wi > 0.0) & draw_mask, length - EPSILON)
         ok = ~wrong_half & (wi > 0.0) & ~occluded & draw_mask
         ld = ld + torch.where(ok[:, None], s[:, None] * scene.emission[li][None, :], 0.0)
     return ld, state
 
 
-def _bounce(scene: Scene, direct_only: bool, rng: str, o, d, rad, thr, alive, spec_b, state):
+def _bounce(scene: Scene, direct_only: bool, rng: str, o, d, rad, thr, alive, spec_b, state,
+            on_sweep=None):
     """One iteration of the bounce loop (geomfunc.h:182-336) over all lanes."""
+    if on_sweep is not None:
+        on_sweep(o, d, alive, None)
     t, hid, hit = intersect_nearest(scene, o, d)
     act = alive & hit
 
@@ -132,7 +138,7 @@ def _bounce(scene: Scene, direct_only: bool, rng: str, o, d, rad, thr, alive, sp
     draw = next_masked(rng)
     # ---------------- DIFF (geomfunc.h:229-269) ----------------
     thr_c = thr * c
-    ld, state = sample_lights(scene, state, hp, nl, is_diff, rng)
+    ld, state = sample_lights(scene, state, hp, nl, is_diff, rng, on_sweep)
     rad = rad + torch.where(is_diff[:, None], thr_c * ld, 0.0)
     if direct_only:
         nd_diff = d  # RadianceDirectLighting:402-414 — ends after NEE
@@ -201,15 +207,17 @@ def radiance(
     max_depth: int = 7,
     direct_only: bool = False,
     rng: str = "mwc",
-    live_bounces: Optional[list] = None,
+    on_sweep: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, MWCState]:
     """Radiance [R, 3] for a batch of rays, and the advanced RNG state
     (int64 words). ``max_depth`` counts bounce-body iterations; the
     reference runs depth = 0..6, so the default is 7.
 
-    ``live_bounces``, when a list, receives one 0-d tensor per bounce: the
-    number of lanes alive at its start (the work a per-lane kernel that
-    stops dead lanes actually does)."""
+    ``on_sweep(origin, direction, mask, max_t)``, when given, is called for
+    every sphere sweep with the lanes on which a per-lane kernel (one that
+    stops dead lanes) runs it: each bounce's nearest-hit sweep over the
+    lanes alive at its start (``max_t`` None), and each shadow sweep over
+    the diffuse lanes whose light sample passed the ``wo``/``wi`` tests."""
     r = origin.shape[0]
     dev = origin.device
     o, d = origin, direction
@@ -218,9 +226,7 @@ def radiance(
     alive = torch.ones((r,), dtype=torch.bool, device=dev)
     spec_b = torch.ones((r,), dtype=torch.bool, device=dev)
     for _ in range(max_depth):
-        if live_bounces is not None:
-            live_bounces.append(alive.sum())
         o, d, rad, thr, alive, spec_b, state = _bounce(
-            scene, direct_only, rng, o, d, rad, thr, alive, spec_b, state
+            scene, direct_only, rng, o, d, rad, thr, alive, spec_b, state, on_sweep
         )
     return rad, state

@@ -1,8 +1,14 @@
-"""K1 and the render driver of the port against the JAX package on the CPU.
+"""K1, K2 and the render driver of the port against the JAX package on the
+CPU.
 
-On the CPU the kernel's wrapper runs its plain version (pt_pass_reference),
+On the CPU the kernels' wrappers run their plain version (pt_pass_reference),
 which is held against the JAX kernel run in interpret mode
 (``render_pallas(interpret=True)``), as tests/test_pallas_kernel.py runs it.
+K2 (scenes over 96 spheres) is checked on ``complex_scene(max_depth=3.0)``
+(158 spheres) at 32x16, 1 spp, max_depth 3, the shape of
+``test_pallas_loop_kernel_matches_jnp``; its lanes are in the blocked
+layout, which is the JAX package's, so states compare lane for lane and
+pixel states through ``inv``.
 Tolerance, the one tests/test_pallas_kernel.py states for Pallas against
 XLA: >= 97% of components within isclose(rtol=2e-3, atol=2e-3), the mean
 within rtol 2e-3, and <= 1% of lanes with a different RNG state (ulp-level
@@ -131,14 +137,114 @@ def test_carry_state_across_from_jax():
 
 
 def test_render_cuda_refuses_what_it_does_not_port():
+    """``complex`` (783 spheres) renders through K2's plain twin; soft edges
+    belong to a later slice and are refused."""
     spec = get_scene("complex")
-    cfg = RenderConfig(width=8, height=8)
-    with pytest.raises(NotImplementedError, match="K2"):
-        ptk.render_cuda(spec.to_scene("cpu"), spec.to_camera("cpu"), cfg, device="cpu")
+    cfg = RenderConfig(width=8, height=8, spp=1, max_depth=2)
+    img, (s0, s1, acc, sample) = ptk.render_cuda(
+        spec.to_scene("cpu"), spec.to_camera("cpu"), cfg, device="cpu")
+    rp, pix, inv = ptk.ray_layout(8, 8, blocked=True)
+    assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all()) and sample == 1
+    assert s0.shape == (rp,) and acc.shape == (3, rp // ptk.LANES, ptk.LANES)
+    np.testing.assert_array_equal(img.reshape(-1, 3).numpy(), acc.reshape(3, -1)[:, inv].T.numpy())
     spec = get_scene("cornell")
     with pytest.raises(NotImplementedError):
         render(spec.to_scene("cpu"), spec.to_camera("cpu"),
                RenderConfig(width=8, height=8, soft_edges=0.5), device="cpu")
+
+
+# ---------------------------------------------------------------- K2 ----
+_PALLAS_K2 = {}
+K2_W, K2_H, K2_SEED = 32, 16, 5
+
+
+def _complex_spec(jax_side):
+    if jax_side:
+        from se195_raytracer_tpu.scenes.generator import complex_scene
+    else:
+        from se195_raytracer_tpu_torch.scenes.generator import complex_scene
+    return complex_scene(max_depth=3.0)  # 158 spheres
+
+
+def _pallas_k2(rng, spp):
+    """JAX K2 (the loop-scene kernel) in interpret mode, cached per module
+    run; spp > 1 continues the cached (spp - 1) render from its state."""
+    import jax.numpy as jnp
+
+    from se195_raytracer_tpu.core.config import RenderConfig as JConfig
+    from se195_raytracer_tpu.kernels.pt_kernel import render_pallas
+
+    key = (rng, spp)
+    if key not in _PALLAS_K2:
+        spec = _complex_spec(True)
+        cfg = JConfig(width=K2_W, height=K2_H, spp=1, seed=K2_SEED, max_depth=3, rng=rng)
+        state = None
+        if spp > 1:
+            state = tuple(jnp.asarray(x) for x in _pallas_k2(rng, spp - 1)[1])
+        img, st = render_pallas(spec.to_scene(), spec.to_camera(), cfg, state=state, interpret=True)
+        _PALLAS_K2[key] = (np.asarray(img), tuple(np.asarray(x) for x in st[:3]) + (int(st[3]),))
+    return _PALLAS_K2[key]
+
+
+def test_block_bounds_and_layout_match_jax():
+    """block_bounds (inflation included) and ray_layout bitwise equal to the
+    JAX package's, for the 158- and 783-sphere fractals and three frames."""
+    from se195_raytracer_tpu.kernels import pt_kernel as jptk
+    from se195_raytracer_tpu.scenes.generator import complex_scene as j_complex
+    from se195_raytracer_tpu_torch.scenes.generator import complex_scene
+
+    for depth in (3.0, 4.0):
+        jb = np.asarray(jptk.block_bounds(jptk.pack_scene(j_complex(max_depth=depth).to_scene())))
+        pb = ptk.block_bounds(ptk.pack_scene(complex_scene(max_depth=depth).to_scene("cpu")))
+        assert pb.shape == jb.shape
+        np.testing.assert_array_equal(pb.numpy(), jb)
+    for w, h in ((K2_W, K2_H), (512, 512), (100, 70)):
+        for blocked in (False, True):
+            jrp, jpix, jinv = jptk.ray_layout(w, h, jptk.DEF_SUBLANES, blocked)
+            rp, pix, inv = ptk.ray_layout(w, h, blocked)
+            assert rp == jrp
+            np.testing.assert_array_equal(pix, jpix)
+            if blocked:
+                np.testing.assert_array_equal(inv, jinv)
+            else:
+                assert inv is None and jinv is None
+
+
+@pytest.mark.parametrize("rng", ["mwc", "counter"])
+def test_plain_k2_matches_pallas(rng):
+    """render(use_kernel=True) on the CPU (K2's plain twin) against the JAX
+    loop-scene kernel: the contract above, the image, every lane's
+    accumulator, and the per-pixel RNG state through ``inv``."""
+    jimg, (js0, js1, jacc, jsample) = _pallas_k2(rng, 1)
+    spec = _complex_spec(False)
+    cfg = RenderConfig(width=K2_W, height=K2_H, spp=1, seed=K2_SEED, max_depth=3, rng=rng)
+    img, (s0, s1, acc, sample) = render(spec.to_scene("cpu"), spec.to_camera("cpu"), cfg,
+                                        device="cpu")
+    _, _, inv = ptk.ray_layout(K2_W, K2_H, blocked=True)
+    assert s0.shape == js0.shape and acc.shape == jacc.shape and sample == jsample == 1
+    which = (s1, js1) if rng == "counter" else (s0, js0)
+    assert_contract(jimg, img.numpy(), which[1][inv], which[0].numpy()[inv])
+    assert_contract(jacc, acc.numpy(), which[1], which[0].numpy())
+
+
+def test_carry_blocked_state_across_from_jax():
+    """1 spp of the JAX loop-scene kernel, its state carried through convert,
+    1 more spp in the port, against the JAX kernel's own continuation."""
+    from se195_raytracer_tpu_torch.scenes.generator import complex_scene
+
+    _, (s0, s1, acc, sample) = _pallas_k2("mwc", 1)
+    state = convert.pallas_state_from_numpy(s0, s1, acc, sample, device="cpu")
+    spec = complex_scene(max_depth=3.0)
+    cfg = RenderConfig(width=K2_W, height=K2_H, spp=1, seed=K2_SEED, max_depth=3)
+    img, st = ptk.render_cuda(spec.to_scene("cpu"), spec.to_camera("cpu"), cfg, state=state,
+                              device="cpu")
+    jimg2, (js0, _, jacc, jsample) = _pallas_k2("mwc", 2)
+    assert st[3] == jsample == 2
+    _, _, inv = ptk.ray_layout(K2_W, K2_H, blocked=True)
+    assert_contract(jimg2, img.numpy(), js0[inv], st[0].numpy()[inv])
+    assert_contract(jacc, st[2].numpy(), js0, st[0].numpy())
+    back = convert.pallas_state_to_numpy(st)
+    assert back[0].shape == js0.shape and back[2].shape == jacc.shape and back[3] == 2
 
 
 @pytest.mark.cuda
@@ -159,6 +265,35 @@ def test_kernel_matches_plain_on_cuda(integrator, rng):
     torch.cuda.synchronize()
     assert ptk.pt_multi_pass.launches == before + 1
     p = ptk.pt_pass_reference(scene_tab, cam_tab, 0, s0, s1, acc, **kw)
+    which = 1 if rng == "counter" else 0
+    assert_contract(p[2].cpu().numpy(), k[2].cpu().numpy(),
+                    p[which].cpu().numpy(), k[which].cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA device")
+@pytest.mark.parametrize("rng", ["mwc", "counter"])
+def test_k2_matches_plain_on_cuda(rng):
+    """K2 against its plain version on the card, same inputs, and the cull
+    bitwise equal to the full sweep."""
+    from se195_raytracer_tpu_torch.scenes.generator import complex_scene
+
+    spec = complex_scene()
+    scene, camera = spec.to_scene("cuda"), spec.to_camera("cuda")
+    cfg = RenderConfig(width=64, height=32, spp=1, seed=4, rng=rng)
+    scene_tab = ptk.pack_scene(scene)
+    cam_tab = ptk.pack_camera(ptk.update_camera(camera, cfg.width, cfg.height))
+    s0, s1, acc = ptk.init_pt_state(cfg, "cuda", blocked=True)
+    pix = torch.from_numpy(ptk.ray_layout(cfg.width, cfg.height, True)[1]).cuda()
+    kw = dict(num_samples=2, width=cfg.width, height=cfg.height, max_depth=cfg.max_depth,
+              direct_only=False, light_indices=scene.light_indices, rng=rng)
+    before = (ptk.pt_blocked_pass.launches, ptk.pt_multi_pass.launches)
+    k = ptk.pt_multi_pass(scene_tab, cam_tab, 0, s0, s1, acc, pix, **kw)
+    off = ptk.pt_blocked_pass(scene_tab, cam_tab, 0, s0, s1, acc, pix, cull=False, **kw)
+    torch.cuda.synchronize()
+    assert (ptk.pt_blocked_pass.launches, ptk.pt_multi_pass.launches) == (before[0] + 2, before[1])
+    assert all(bool(torch.equal(a, b)) for a, b in zip(k, off))
+    p = ptk.pt_pass_reference(scene_tab, cam_tab, 0, s0, s1, acc, pix, **kw)
     which = 1 if rng == "counter" else 0
     assert_contract(p[2].cpu().numpy(), k[2].cpu().numpy(),
                     p[which].cpu().numpy(), k[which].cpu().numpy())
