@@ -23,8 +23,21 @@
    frame entry, for hit_bias 0 and 0.005;
 8. the Whitted main path (CLI and ``render_whitted``, room 800x600 3x3:
    one K3 launch per render) and K3 timing;
-9. prints one JSON line per kernel (``{"kernels": [...]}``) and, last,
-   ``{"ok": true, "device": {...}}``.
+9. K5 (the texel fetch of csrc/whitted5_kernel.cu, alone) against
+   models/whitted5._texel, bitwise, on 2^18 lanes of two atlases: the
+   procedural room5 one and a 2 x 200 x 200 u8/256 one written as TGA files
+   and read through io/tga.py; its timing;
+10. K4 (csrc/whitted5_kernel.cu) against the plain tracer, room5 800x600,
+    spp 1, seed 3, depth 4, and the deterministic scene;
+11. the whitted5 main paths at room5 800x600 (CLI brute and adaptive,
+    render_whitted5 at spp 8, render_whitted5_4ray, the adaptive pipeline
+    under the CUDA sync check), counters set to 0 before each, each held
+    against its plain version;
+12. whitted5 timings at 320x240 and 800x600 for spp 1, spp 8, 4-ray and
+    adaptive, with bounds from the plain tracer's live-work count, the
+    adaptive against 4-ray ratio and PSNRs;
+13. prints one JSON line per kernel (``{"kernels": [...]}``, K1-K5) and,
+    last, ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Imports nothing of
 JAX or of the JAX package. Exits non-zero without a result when no CUDA
@@ -34,6 +47,7 @@ device is present.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -76,6 +90,26 @@ OPS_BOUND = 14  # per block-bound test (block_possible)
 W_OPS_PLANE, W_OPS_SPHERE = 15, 20  # per primitive test of a Whitted sweep
 W_OPS_LIGHT = 45  # per light of a lit Whitted node: direction, N.L, Phong
 W_OPS_NODE = 40  # per live Whitted node: hit point, normal, contribution, children
+# whitted5 (K4): FP32 ops per primitive test of a sweep (a box is 6 slab faces
+# of ~20), per live node, per light of a lit node, per shadow-sample setup
+# (two counter draws, the grid point, the direction), per texel fetch (uv
+# mapping, index math, 4-corner blend) and per glossy disc sample.
+W5_OPS_SPHERE, W5_OPS_PLANE, W5_OPS_BOX = 20, 15, 120
+W5_OPS_NODE = 60
+W5_OPS_LIGHT = 45
+W5_OPS_SAMPLE = 40
+W5_OPS_TEXEL = 60
+W5_OPS_GLOSSY = 50
+K5_OPS_LANE = 40  # per K5 lane: index math and the 3-channel blend
+K5_LANES = 1 << 18
+W5_SIZES = ((320, 240), (800, 600))
+W5_SPP = 8
+W5_SEED = 3
+# K4 against its plain version (the contract tests/test_whitted5_kernel.py
+# sets the TPU kernel against jnp, tightened): p99 of |diff|, the share of
+# components outside isclose(1e-3, 1e-3), the image mean, the primary hits.
+K4_P99, K4_BAD, K4_MEAN_RTOL, K4_IDX = 1e-4, 1e-3, 1e-4, 0.9999
+K4_DET_TOL = 1e-5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -173,19 +207,28 @@ def check_resume(scene_name, width, height, device):
 
 def zero_counters():
     from se195_raytracer_tpu_torch.kernels import pt_kernel as ptk
+    from se195_raytracer_tpu_torch.kernels import texel_kernel as tk
+    from se195_raytracer_tpu_torch.kernels import whitted5_kernel as w5k
     from se195_raytracer_tpu_torch.kernels import whitted_kernel as wk
 
     for fn in (ptk.pt_multi_pass, ptk.pt_blocked_pass, wk.whitted_trace_cuda,
-               wk.whitted_frame_cuda):
+               wk.whitted_frame_cuda, w5k.whitted5_trace_cuda, tk.texel_fetch_cuda):
         fn.launches = 0
+    w5k.whitted5_trace_cuda.texel_launches = 0
 
 
 def read_counters():
+    """Launches by kernel. K5 counts the K4 launches whose scene is textured,
+    where its fetch runs inside K4, plus launches of its own entry."""
     from se195_raytracer_tpu_torch.kernels import pt_kernel as ptk
+    from se195_raytracer_tpu_torch.kernels import texel_kernel as tk
+    from se195_raytracer_tpu_torch.kernels import whitted5_kernel as w5k
     from se195_raytracer_tpu_torch.kernels import whitted_kernel as wk
 
     return {"K1": ptk.pt_multi_pass.launches, "K2": ptk.pt_blocked_pass.launches,
-            "K3": wk.whitted_trace_cuda.launches + wk.whitted_frame_cuda.launches}
+            "K3": wk.whitted_trace_cuda.launches + wk.whitted_frame_cuda.launches,
+            "K4": w5k.whitted5_trace_cuda.launches,
+            "K5": w5k.whitted5_trace_cuda.texel_launches + tk.texel_fetch_cuda.launches}
 
 
 def run_main_path(scene_name, width, height, spp, out_png, want):
@@ -460,7 +503,7 @@ def k3_section():
 
     w, h, ss, depth = WHITTED["width"], WHITTED["height"], WHITTED["supersample"], WHITTED["trace_depth"]
     print(f"[7] K3 against the plain tracer: {w}x{h}, {ss}x{ss}, depth {depth}")
-    max_err, works = 0.0, {}
+    max_err, max_bad, works = 0.0, 0.0, {}
     plain_tile = 1 << 20  # rays per chunk of the plain tracer
     for name in ("room", "grid"):
         scene = WHITTED_SCENES[name]("cuda")
@@ -484,6 +527,7 @@ def k3_section():
                 check(bool(torch.isfinite(img).all()), f"K3 {name} {entry}: not finite")
                 check(bad == 0, f"K3 {name} hit_bias {bias} {entry} entry: {bad} components differ")
                 max_err = max(max_err, err)
+                max_bad = max(max_bad, bad / img.numel())
             print(f"    live work (plain): {work}")
 
     print(f"[8] main path: whitted room {w}x{h} {ss}x{ss}")
@@ -501,7 +545,8 @@ def k3_section():
         with open(out_png, "rb") as f:
             check(f.read(8) == b"\x89PNG\r\n\x1a\n", "cli output is not a PNG")
     print(f"  launches during the main path: {launches}")
-    check(after_cli["K3"] == 1 and launches["K3"] == 2 and not launches["K1"] and not launches["K2"],
+    others = {k: v for k, v in launches.items() if k != "K3"}
+    check(after_cli["K3"] == 1 and launches["K3"] == 2 and not any(others.values()),
           f"launches: cli {after_cli}, total {launches} (want one K3 per call, nothing else)")
     check(tuple(img.shape) == (h, w, 3) and bool(torch.isfinite(img).all()), "whitted image")
     check(img.max().item() > 1.0, "whitted image is black")
@@ -539,6 +584,7 @@ def k3_section():
         "replaces": "se195_raytracer_tpu/kernels/whitted_kernel.py:121",
         "launches": launches["K3"],
         "max_abs_err": max_err,
+        "mismatch_frac": max_bad,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -549,6 +595,388 @@ def k3_section():
         "peak_mem_bytes": peak_mem,
         "work": work,
     }
+
+
+def psnr(a, b):
+    """PSNR of ``a`` against the reference ``b``, peak = max of ``b``
+    (tools/adaptive_ab.py's definition)."""
+    mse = float(((a.double() - b.double()) ** 2).mean())
+    peak = float(b.max()) or 1.0
+    return 10.0 * math.log10(peak * peak / max(mse, 1e-20))
+
+
+def uv_lanes(n, seed, device):
+    """Random texture coordinates, 1% of them far negative (u + 1000.5 < 0:
+    the floor modulo must keep them inside the texture)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(-3.0, 3.0, n).astype(np.float32)
+    v = rng.uniform(-3.0, 3.0, n).astype(np.float32)
+    far = rng.random(n) < 0.01
+    u[far] = rng.uniform(-5000.0, -1001.0, far.sum()).astype(np.float32)
+    v[far[::-1]] = rng.uniform(-5000.0, -1001.0, far.sum()).astype(np.float32)
+    tex = rng.integers(0, 2, n).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(device) for a in (tex, u, v))
+
+
+def k5_section(tmp):
+    """Phase 9: K5 alone against _texel, bitwise, on two atlases; timing."""
+    import numpy as np
+    import torch
+
+    from se195_raytracer_tpu_torch.io.tga import write_tga
+    from se195_raytracer_tpu_torch.kernels import texel_kernel as tk
+    from se195_raytracer_tpu_torch.models import whitted5 as P
+    from se195_raytracer_tpu_torch.scenes import whitted5_scenes as S
+
+    print(f"[9] K5 against _texel on the card, {K5_LANES} lanes")
+    rng = np.random.default_rng(0)
+    for name in ("checker", "marble"):
+        write_tga(os.path.join(tmp, f"{name}.tga"),
+                  rng.integers(0, 256, size=(200, 200, 3)).astype(np.uint8))
+    atlases = {"procedural 2x64x64": S.room5_scene("procedural", device="cuda"),
+               "u8/256 2x200x200 via io/tga": S.room5_scene("real", device="cuda",
+                                                            textures_dir=tmp)}
+    tex, u, v = uv_lanes(K5_LANES, 1, "cuda")
+    live = torch.ones(K5_LANES, dtype=torch.bool, device="cuda")
+    bad_lanes, max_err = 0, 0.0
+    for label, scene in atlases.items():
+        flat, textab = tk.pack_texel_atlas(scene.textures)
+        th, tw = scene.textures[0].shape[:2]
+        out = tk.texel_fetch_cuda(flat, textab, tex, u, v, live)
+        ref = P._texel(torch.cat(list(scene.textures)), u, v, row_offset=tex * th,
+                       wrap_shape=(th, tw)).T
+        plain = tk.texel_fetch_reference(flat, textab, tex, u, v, live)
+        diff = int((out != ref).any(dim=0).sum())
+        bad_lanes += diff
+        max_err = max(max_err, (out - ref).abs().max().item())
+        print(f"  {label}: {diff} lanes differ from _texel, {int((out != plain).any(dim=0).sum())} "
+              f"from texel_fetch_reference; max_abs_err {(out - ref).abs().max().item():.3g}")
+        check(bool(torch.isfinite(out).all()), f"K5 {label}: not finite")
+    check(bad_lanes == 0, f"K5: {bad_lanes} lanes differ from _texel")
+
+    print("  K5 timing (u8/256 200x200 atlas)")
+    scene = atlases["u8/256 2x200x200 via io/tga"]
+    flat, textab = tk.pack_texel_atlas(scene.textures)
+    kernel_ms, kall = launch_ms(lambda: tk.texel_fetch_cuda(flat, textab, tex, u, v, live))
+    plain_ms, pall = median_ms(lambda: tk.texel_fetch_reference(flat, textab, tex, u, v, live),
+                               reps=20)
+    # The library yardstick: torch's gather atlas[v, u] at the four corners
+    # and the blend, indices and weights made beforehand (plain torch).
+    atlas2 = torch.cat(list(scene.textures))
+    th, tw = scene.textures[0].shape[:2]
+    fu, fv = (u + 1000.5) * tw, (v + 1000.0) * tw
+    u1 = (torch.floor(fu).to(torch.int32) % tw).long()
+    v1 = (torch.floor(fv).to(torch.int32) % th + tex * th).long()
+    u2, v2 = (u1 + 1) % tw, (v1 - tex * th + 1) % th + tex * th
+    fx, fy = fu - torch.floor(fu), fv - torch.floor(fv)
+    w = [((1 - fx) * (1 - fy))[:, None], (fx * (1 - fy))[:, None], ((1 - fx) * fy)[:, None],
+         (fx * fy)[:, None]]
+    lib_ms, lall = median_ms(lambda: atlas2[v1, u1] * w[0] + atlas2[v1, u2] * w[1]
+                             + atlas2[v2, u1] * w[2] + atlas2[v2, u2] * w[3], reps=20)
+    n = K5_LANES
+    nbytes = n * (4 + 4 + 4 + 1) + n * 12 + flat.numel() * 4 + textab.numel() * 4
+    print(f"  K5 kernel {kernel_ms:.5f} ms (reps {min(kall):.5f}-{max(kall):.5f}), plain "
+          f"{plain_ms:.4f} ms, torch gather + blend {lib_ms:.4f} ms")
+    bound_ms, bound_by = bound(n * K5_OPS_LANE, nbytes, kernel_ms, "K5")
+    return {"max_abs_err": max_err, "mismatch_frac": bad_lanes / n,
+            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "lanes": n, "atlas_bytes": flat.numel() * 4}
+
+
+def k4_contract(a, b, tag, idx_a=None, idx_b=None):
+    """K4's output against its plain version's: p99 of |diff|, the share of
+    components outside isclose(1e-3, 1e-3), the image means, the primary hit
+    ids. Returns (max_abs_err, mismatch share)."""
+    import torch
+
+    check(bool(torch.isfinite(a).all()), f"{tag}: not finite")
+    d = (a - b).abs().flatten()
+    p99 = torch.quantile(d.float()[: 1 << 24], 0.99).item()
+    bad = (~torch.isclose(a, b, rtol=1e-3, atol=1e-3)).double().mean().item()
+    ma, mb = a.double().mean().item(), b.double().mean().item()
+    line = (f"  {tag}: max_abs_err {d.max().item():.6g}, p99 {p99:.3g}, outside isclose "
+            f"{bad:.4%}, bitwise {(d == 0).double().mean().item():.4%}, mean {ma:.7f} vs {mb:.7f}")
+    if idx_a is not None:
+        same = (idx_a.long() == idx_b.long()).double().mean().item()
+        line += f", primary ids equal {same:.4%}"
+        check(same >= K4_IDX, f"{tag}: primary hit ids equal on only {same:.4%}")
+    print(line)
+    check(p99 < K4_P99, f"{tag}: p99 {p99}")
+    check(bad <= K4_BAD, f"{tag}: {bad:.3%} components outside isclose")
+    check(abs(ma - mb) <= K4_MEAN_RTOL * abs(mb), f"{tag}: means differ")
+    return d.max().item(), bad
+
+
+def w5_work_ops(scene, work):
+    """FP32 ops of the live whitted5 work the plain tracer counted."""
+    n_sph = sum(1 for t in scene.ptype if t == 0)
+    n_pla = sum(1 for t in scene.ptype if t == 1)
+    n_box = scene.num_prims - n_sph - n_pla
+    sweep = W5_OPS_SPHERE * n_sph + W5_OPS_PLANE * n_pla + W5_OPS_BOX * n_box
+    lights = sum(1 for x in scene.is_light if x)
+    return (work["nodes"] * (sweep + W5_OPS_NODE) + work["lit"] * lights * W5_OPS_LIGHT
+            + work["shadow_sweeps"] * (sweep + W5_OPS_SAMPLE) + work["texels"] * W5_OPS_TEXEL
+            + work["glossy"] * W5_OPS_GLOSSY)
+
+
+def k4_section(tmp):
+    """Phases 10-12: K4 against the plain tracer, the whitted5 main paths,
+    the timings."""
+    import torch
+
+    from se195_raytracer_tpu_torch import cli
+    from se195_raytracer_tpu_torch.kernels import whitted5_kernel as w5k
+    from se195_raytracer_tpu_torch.models import whitted5 as P
+    from se195_raytracer_tpu_torch.scenes import whitted5_scenes as S
+
+    w, h = W5_SIZES[-1]
+    r = w * h
+    scene = S.WHITTED5_SCENES["room5"]("cuda")
+    print(f"[10] K4 against the plain tracer: room5 {w}x{h}, spp 1, seed {W5_SEED}, depth "
+          f"{P.TRACEDEPTH5}, textures {[tuple(t.shape) for t in scene.textures]}")
+    o, d = P._cached_rays5(w, h, (0.5, 0.5), "cuda")
+    state = P._cached_state5(r, W5_SEED, "cuda")
+    col, st, idx = w5k.whitted5_trace_cuda(scene, o, d, state, return_primary_idx=True)
+    pcol, pst, pidx = P.trace_passes(scene, o, d, state, return_primary_idx=True)
+    check(torch.equal(st[1], pst[1]), "K4: RNG counters differ from the plain version's")
+    errs = [k4_contract(col, pcol, "K4 room5 spp 1", idx, pidx)]
+    det = S.Whitted5Builder()
+    det.plane((0.0, 1.0, 0.0), 4.4, color=(0.4, 0.3, 0.3), diff=1.0, spec=0.4)
+    det.sphere((1.0, -0.8, 3.0), 2.5, color=(0.7, 0.7, 1.0), refl=0.4, diff=0.2)
+    det.sphere((-2.0, 0.5, 6.0), 1.5, color=(1.0, 0.4, 0.4), refr=0.8, refr_index=1.3, diff=0.1)
+    det.sphere((0.0, 5.0, 5.0), 0.1, color=(0.6, 0.6, 0.6), is_light=True)
+    det = det.build("cuda")
+    a = P.render_whitted5(det, w, h, spp=1, seed=0)
+    b = P.render_whitted5(det, w, h, spp=1, seed=0, use_kernel=False)
+    derr = (a - b).abs().max().item()
+    print(f"  deterministic scene {w}x{h}: max_abs_err {derr:.3g}")
+    check(bool(torch.allclose(a, b, rtol=K4_DET_TOL, atol=K4_DET_TOL)), "K4 deterministic scene")
+
+    print(f"[11] whitted5 main paths: room5 {w}x{h}")
+    main_launches = {}
+    frames = {}
+
+    def counted(label, fn, want_k4):
+        zero_counters()
+        out = fn()
+        torch.cuda.synchronize()
+        got = read_counters()
+        others = {k: v for k, v in got.items() if k not in ("K4", "K5")}
+        print(f"  {label}: launches {got}")
+        check(got["K4"] == want_k4 and got["K5"] == want_k4 and not any(others.values()),
+              f"{label}: launches {got}, want {want_k4} K4 (K5 inside), nothing else")
+        for k in ("K4", "K5"):
+            main_launches[k] = main_launches.get(k, 0) + got[k]
+        return out
+
+    base = ["render", "--integrator", "whitted5", "--width", str(w), "--height", str(h),
+            "--seed", str(W5_SEED)]
+    for extra, want in ((["--spp", str(W5_SPP)], 1), (["--adaptive"], 2)):
+        png = os.path.join(tmp, "room5.png")
+        rc = counted("cli " + " ".join(extra),
+                     lambda: cli.main(base + extra + ["--out", png]), want)
+        check(rc == 0, f"cli whitted5 {extra} exited {rc}")
+        with open(png, "rb") as f:
+            check(f.read(8) == b"\x89PNG\r\n\x1a\n", "cli output is not a PNG")
+    frames["spp8"] = counted(f"render_whitted5 spp {W5_SPP}", lambda: P.render_whitted5(
+        scene, w, h, spp=W5_SPP, seed=W5_SEED), 1)
+    frames["4ray"] = counted("render_whitted5_4ray", lambda: P.render_whitted5_4ray(
+        scene, w, h, seed=W5_SEED), 1)
+    P.adaptive_pipeline(scene, w, h, seed=W5_SEED)  # caches this size's rays and state
+
+    def adaptive_no_sync():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return P.adaptive_pipeline(scene, w, h, seed=W5_SEED)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    frames["adaptive"], n_edge = counted("adaptive_pipeline (no host sync)", adaptive_no_sync, 2)
+    frac = int(n_edge) / r
+    print(f"  adaptive: edge fraction {frac:.6f} ({int(n_edge)} of {r} pixels), bucket "
+          f"{P.adaptive_bucket(w, h)}")
+    plain = {
+        "spp8": P.render_whitted5(scene, w, h, spp=W5_SPP, seed=W5_SEED, use_kernel=False),
+        "4ray": P.render_whitted5_4ray(scene, w, h, seed=W5_SEED, use_kernel=False),
+    }
+    pa, pfrac = P.render_whitted5_adaptive(scene, w, h, seed=W5_SEED, use_kernel=False)
+    plain["adaptive"] = pa
+    check(pfrac == frac, f"adaptive edge fraction {frac} vs plain {pfrac}")
+    for key in ("spp8", "4ray", "adaptive"):
+        check(tuple(frames[key].shape) == (h, w, 3), f"{key}: shape {tuple(frames[key].shape)}")
+        errs.append(k4_contract(frames[key], plain[key], f"main path {key} vs plain"))
+
+    print("[12] whitted5 timings (room5)")
+    cells = {}
+    for cw, ch in W5_SIZES:
+        for cfg in ("spp1", f"spp{W5_SPP}", "4ray", "adaptive"):
+            cells[f"{cw}x{ch} {cfg}"] = w5_cell(scene, cw, ch, cfg)
+    return errs, main_launches, cells, frac
+
+
+def launch_ms(fn, n=20, reps=5):
+    """Median over ``reps`` of the time per call of ``n`` calls in a row
+    between two CUDA events (one warm-up call first): back-to-back launches
+    keep the card busy while the host enqueues, so small kernels are not
+    timed as host latency."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times), times
+
+
+def device_profile(fn, reps=5):
+    """(wall ms, device-busy ms, K4 device ms) per call of ``fn`` over
+    ``reps`` calls under torch.profiler: the card's idle share is 1 - busy /
+    wall, at least 0 (the profiler's own overhead is in the wall time, and
+    its device time sums activities that overlap, such as a copy and a
+    kernel, so busy can pass wall by a hair)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / reps
+
+    def dev(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    events = prof.key_averages()
+    busy = sum(dev(e) for e in events) / reps / 1e3
+    k4 = sum(dev(e) for e in events if "whitted5_kernel" in e.key) / reps / 1e3
+    return wall, busy, k4
+
+
+def w5_cell(scene, w, h, cfg):
+    """One timing cell: K4 ms (CUDA events, back-to-back launches; for the
+    adaptive render the two K4 launches' device time from the profiler), end
+    to end with readback (host clock), the card's idle share over the end to
+    end, plain ms, launches, peak memory, the bound from the plain tracer's
+    live work."""
+    import torch
+
+    from se195_raytracer_tpu_torch.kernels import whitted5_kernel as w5k
+    from se195_raytracer_tpu_torch.models import whitted5 as P
+
+    r = w * h
+    state = P._cached_state5(r, W5_SEED, "cuda")
+    if cfg.startswith("spp"):
+        spp = int(cfg[3:])
+        o, d = P._cached_rays5(w, h, (0.5, 0.5), "cuda")
+        render = lambda **kw: P.render_whitted5(scene, w, h, spp=spp, seed=W5_SEED, **kw)
+        kernel = lambda: w5k.whitted5_trace_cuda(scene, o, d, state, spp=spp)
+        n_sets = 1
+    elif cfg == "4ray":
+        o, d = P._cached_rays5_4(w, h, "cuda")
+        render = lambda **kw: P.render_whitted5_4ray(scene, w, h, seed=W5_SEED, **kw)
+        kernel = lambda: w5k.whitted5_trace_cuda(scene, o, d, state, spp=4)
+        n_sets = 4
+    else:
+        render = lambda **kw: P.render_whitted5_adaptive(scene, w, h, seed=W5_SEED, **kw)[0]
+        kernel = None
+        n_sets = None
+    zero_counters()
+    img = render()
+    torch.cuda.synchronize()
+    launches = read_counters()["K4"]
+    torch.cuda.reset_peak_memory_stats()
+    e2e_ms, eall = host_ms(lambda: render().cpu(), reps=5)
+    peak = torch.cuda.max_memory_allocated()
+    wall, busy, k4_dev = device_profile(lambda: render().cpu())
+    idle = max(0.0, 1 - busy / wall)
+    if kernel is None:
+        pipe_ms, kall = launch_ms(lambda: P.adaptive_pipeline(scene, w, h, seed=W5_SEED), n=5)
+        kernel_ms = k4_dev
+    else:
+        kernel_ms, kall = launch_ms(kernel, n=20 if w * h * (n_sets or 1) < 1 << 20 else 5)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    render(use_kernel=False)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    work = {}
+    render(use_kernel=False, work=work)
+    ops = w5_work_ops(scene, work)
+    if n_sets is None:  # adaptive: the primary pass and 3 passes over the bucket
+        bucket = P.adaptive_bucket(w, h)
+        nbytes = r * (24 + 8 + 12 + 4) + 3 * bucket * 24 + bucket * (8 + 12)
+    else:
+        nbytes = n_sets * r * 24 + r * 8 + r * 12
+    nbytes += sum(t.numel() * 4 for t in scene.textures)
+    what = "K4 (2 launches, profiler)" if kernel is None else "K4"
+    line = f"  {w}x{h} {cfg}: {what} {kernel_ms:.4f} ms"
+    if kernel is None:
+        line += f"; the whole pipeline {pipe_ms:.4f} ms per call in a row"
+    print(f"{line} (reps {min(kall):.4f}-{max(kall):.4f}); e2e with readback {e2e_ms:.4f} ms "
+          f"(reps {min(eall):.4f}-{max(eall):.4f}); under the profiler wall {wall:.4f} ms, card "
+          f"busy {busy:.4f} ms (K4 {k4_dev:.4f}), idle share {idle:.2%}; plain "
+          f"{plain_ms:.2f} ms; K4 launches {launches}; peak memory {peak} B; work {work}")
+    bound_ms, bound_by = bound(ops, nbytes, kernel_ms, f"{w}x{h} {cfg}")
+    return {"ms": kernel_ms, "e2e_ms": e2e_ms, "plain_ms": plain_ms, "launches": launches,
+            "peak_mem_bytes": peak, "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
+            "bytes": nbytes, "idle_share": idle, "busy_ms": busy, "work": work,
+            "img": img}
+
+
+def w5_summary(cells, k5, errs, main_launches, frac):
+    """The adaptive A/B lines and the K4 and K5 entries of the kernels line."""
+    for size in W5_SIZES:
+        key = f"{size[0]}x{size[1]}"
+        ref = cells[f"{key} 4ray"]["img"]
+        ratio = cells[f"{key} adaptive"]["e2e_ms"] / cells[f"{key} 4ray"]["e2e_ms"]
+        print(f"  {key}: adaptive / 4-ray wall clock (e2e) {ratio:.4f}; PSNR vs 4-ray: brute 1-ray "
+              f"{psnr(cells[f'{key} spp1']['img'], ref):.3f} dB, adaptive "
+              f"{psnr(cells[f'{key} adaptive']['img'], ref):.3f} dB")
+        for c in ("spp1", f"spp{W5_SPP}", "4ray", "adaptive"):
+            cells[f"{key} {c}"].pop("img")
+    big = cells[f"{W5_SIZES[-1][0]}x{W5_SIZES[-1][1]} spp{W5_SPP}"]
+    k4 = {
+        "name": "K4 whitted5_trace_cuda",
+        "route": "cuda",
+        "source": "se195_raytracer_tpu_torch/kernels/csrc/whitted5_kernel.cu",
+        "replaces": "se195_raytracer_tpu/kernels/whitted5_kernel.py:151",
+        "launches": main_launches["K4"],
+        "max_abs_err": max(e[0] for e in errs),
+        "mismatch_frac": max(e[1] for e in errs),
+        "ms": big["ms"],
+        "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"],
+        "bound_by": big["bound_by"],
+        "library_ms": None,
+        "e2e_ms": big["e2e_ms"],
+        "edge_fraction": frac,
+        "cells": cells,
+    }
+    k5e = {
+        "name": "K5 texel fetch (device function inside K4; texel_fetch_cuda alone)",
+        "route": "cuda",
+        "source": "se195_raytracer_tpu_torch/kernels/csrc/whitted5_kernel.cu",
+        "replaces": "se195_raytracer_tpu/kernels/texel_kernel.py:116",
+        "launches": main_launches["K5"],
+        **{k: k5[k] for k in ("max_abs_err", "mismatch_frac", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms", "lanes", "atlas_bytes")},
+    }
+    return k4, k5e
 
 
 def main() -> int:
@@ -581,6 +1009,12 @@ def main() -> int:
     t = time.perf_counter()
     kernels.append(k3_section())
     print(f"  (K3 phases {time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        k5 = k5_section(tmp)
+        errs, main_launches, cells, frac = k4_section(tmp)
+    kernels.extend(w5_summary(cells, k5, errs, main_launches, frac))
+    print(f"  (K4/K5 phases {time.perf_counter() - t:.1f} s)")
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -5,6 +5,8 @@ smallpt and Whitted families):
         --width 512 --height 512 --spp 8 --integrator pt --out out.png
     python -m se195_raytracer_tpu_torch.cli render --integrator whitted \
         --scene room --width 800 --height 600 --out room.png
+    python -m se195_raytracer_tpu_torch.cli render --integrator whitted5 \
+        --width 800 --height 600 --spp 8 [--adaptive] --out room5.png
     python -m se195_raytracer_tpu_torch.cli scenes
 
 Renders run on the CUDA device unless ``--device cpu`` is given.
@@ -16,7 +18,6 @@ import argparse
 import sys
 import time
 
-PORTED_INTEGRATORS = ("pt", "dl", "whitted")
 # Per-integrator default scene (reference defaults: Cornell for smallpt,
 # the 17-prim room for 3.2.0x, Scene::InitScene's room for raytracer5).
 DEFAULT_SCENE = {"pt": "cornell", "dl": "cornell", "whitted": "room", "whitted5": "room5"}
@@ -33,6 +34,34 @@ def _whitted_scene(name: str, device):
     return WHITTED_SCENES[name](device)
 
 
+def _render_whitted5(args, scene_name):
+    """The raytracer5 family: the brute render (trace depth 4, ``--spp``
+    passes) or, with ``--adaptive``, adaptive 1-vs-4-ray supersampling.
+    Returns the [H, W, 3] u8 image, or None with an error printed."""
+    import numpy as np
+
+    from se195_raytracer_tpu_torch.models.whitted5 import (
+        render_whitted5,
+        render_whitted5_adaptive,
+    )
+    from se195_raytracer_tpu_torch.scenes.whitted5_scenes import WHITTED5_SCENES
+
+    if scene_name not in WHITTED5_SCENES:
+        print(f"error: unknown whitted5 scene {scene_name!r} "
+              f"(known: {', '.join(sorted(WHITTED5_SCENES))})", file=sys.stderr)
+        return None
+    scene = WHITTED5_SCENES[scene_name](args.device)
+    kw = dict(width=args.width, height=args.height, seed=args.seed, use_kernel=args.kernel,
+              device=args.device)
+    if args.adaptive:
+        img, frac = render_whitted5_adaptive(scene, **kw)
+        print(f"adaptive supersampling: {frac * 100:.1f}% edge pixels got 4 rays",
+              file=sys.stderr)
+    else:
+        img = render_whitted5(scene, spp=args.spp, **kw)
+    return np.clip(img.cpu().numpy() * 255.0, 0, 255).astype(np.uint8)
+
+
 def cmd_render(args) -> int:
     import numpy as np
     import torch
@@ -41,11 +70,14 @@ def cmd_render(args) -> int:
     from se195_raytracer_tpu_torch.io.image import write_image
     from se195_raytracer_tpu_torch.scenes.registry import SCENES, list_scenes
 
-    if args.integrator not in PORTED_INTEGRATORS:
-        print(f"error: integrator {args.integrator!r} is not yet ported", file=sys.stderr)
-        return 2
     scene_name = args.scene or DEFAULT_SCENE[args.integrator]
-    if args.integrator != "whitted" and scene_name not in SCENES:
+    if args.adaptive and args.integrator != "whitted5":
+        print("error: --adaptive is for --integrator whitted5", file=sys.stderr)
+        return 2
+    if args.soft > 0.0:
+        print("error: --soft > 0 (the soft-edge relaxation) is not yet ported", file=sys.stderr)
+        return 2
+    if args.integrator in ("pt", "dl") and scene_name not in SCENES:
         print(
             f"error: unknown scene {scene_name!r} (known: {', '.join(list_scenes())}); "
             "the .scn parser is not yet ported",
@@ -76,6 +108,12 @@ def cmd_render(args) -> int:
         img_u8 = np.clip(img.cpu().numpy(), 0, 255).astype(np.uint8)
         rays = args.width * args.height * args.supersample ** 2
         what = f"ss={args.supersample}"
+    elif args.integrator == "whitted5":
+        img_u8 = _render_whitted5(args, scene_name)
+        if img_u8 is None:
+            return 2
+        rays = args.width * args.height * (1 if args.adaptive else args.spp)
+        what = "adaptive" if args.adaptive else f"spp={args.spp}"
     else:
         from se195_raytracer_tpu_torch.driver.render import render
         from se195_raytracer_tpu_torch.ops.tonemap import to_srgb_bytes
@@ -87,7 +125,7 @@ def cmd_render(args) -> int:
         img_u8 = to_srgb_bytes(img).cpu().numpy()
         rays = args.width * args.height * args.spp
         what = f"spp={args.spp}"
-    if img.is_cuda:
+    if torch.cuda.is_available():
         torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     print(
@@ -115,7 +153,7 @@ def main(argv=None) -> int:
 
     p = sub.add_parser("render", help="render a scene to an image file")
     p.add_argument("--scene", default=None,
-                   help="registry name (default: per integrator, cornell / room)")
+                   help="registry name (default: per integrator, cornell / room / room5)")
     p.add_argument("--width", type=int, default=640)
     p.add_argument("--height", type=int, default=480)
     p.add_argument("--spp", type=int, default=8)
@@ -125,7 +163,8 @@ def main(argv=None) -> int:
         choices=["pt", "dl", "whitted", "whitted5"],
         default="pt",
         help="pt=RadiancePathTracing, dl=RadianceDirectLighting, "
-        "whitted=Whitted reflect/refract tree (3.2.0x); whitted5 is not yet ported",
+        "whitted=Whitted reflect/refract tree (3.2.0x), whitted5=extended Whitted "
+        "(area lights, boxes, glossy, textures; raytracer5)",
     )
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--ray-tile", type=int, default=None)
@@ -138,6 +177,12 @@ def main(argv=None) -> int:
     p.add_argument("--hit-bias", type=float, default=0.0,
                    help="whitted: 3.2.03 sphere near-hit slack (0.005, "
                    "raytracer_kernel.cl:128); default 0 = 3.2.02/CPU")
+    p.add_argument("--adaptive", action="store_true",
+                   help="whitted5: adaptive 1-vs-4-ray supersampling (raytracer5 "
+                   "Engine::Render, raytracer.cpp:481-535)")
+    p.add_argument("--soft", type=float, default=0.0, metavar="W",
+                   help="soft-edge relaxation width; only 0 (the reference's hard "
+                   "estimator) is ported, W > 0 exits 2")
     p.add_argument(
         "--kernel",
         action=argparse.BooleanOptionalAction,

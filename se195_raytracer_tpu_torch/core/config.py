@@ -34,6 +34,10 @@ class RenderConfig:
     supersample: int = 3
     trace_depth: int = 5
     hit_bias: float = 0.0
+    # The raytracer5 family (models/whitted5.py) takes its knobs as keyword
+    # arguments, not from this class: width, height, spp, seed and use_kernel
+    # mean the same there; its trace depth is TRACEDEPTH5 = 4 (the CLI's
+    # --trace-depth is the 3.2.0x knob), and soft_edges > 0 raises there too.
     # Differentiable-visibility relaxation width. The port implements the
     # hard estimator only; > 0 raises NotImplementedError at render time.
     soft_edges: float = 0.0

@@ -29,9 +29,13 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-# Per-source flags. K3 rounds every a * b + c twice, as its plain version's
-# separate tensor ops do, so that the two agree to the ulp on the geometry.
-EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"whitted_kernel": ("-fmad=false",)}
+# Per-source flags. K3 and K4 round every a * b + c twice, as their plain
+# versions' separate tensor ops do, so that the two agree to the ulp on the
+# geometry.
+EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
+    "whitted_kernel": ("-fmad=false",),
+    "whitted5_kernel": ("-fmad=false",),
+}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -24,6 +24,18 @@ print(len(names), bad)
 """
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Each test runs the port's CPU code on one intra-op thread: the suite
+    runs several pytest workers at once, and torch's OpenMP threads, one
+    team per worker, then stall each other on the plain tracers' many small
+    ops."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_port_imports_no_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
@@ -32,7 +44,7 @@ def test_port_imports_no_jax():
     )
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 25  # every module of both slices was imported
+    assert int(count) >= 30  # every module of the three slices was imported
     assert bad == "[]", f"port pulled in {bad}"
 
 
@@ -70,5 +82,12 @@ def test_cli_renders_on_cpu_when_asked(tmp_path):
             "--supersample", "1", "--device", "cpu", "--out", str(out)]
     assert cli.main(argv) == 0
     assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
-    assert cli.main(["render", "--integrator", "whitted5", "--device", "cpu", "--out", ""]) != 0
+    for extra in ([], ["--adaptive"]):
+        out = tmp_path / f"w5{len(extra)}.png"
+        argv = ["render", "--integrator", "whitted5", "--width", "16", "--height", "12",
+                "--spp", "1", "--device", "cpu", "--out", str(out), *extra]
+        assert cli.main(argv) == 0
+        assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    assert cli.main(["render", "--integrator", "whitted5", "--width", "16", "--height", "12",
+                     "--soft", "0.5", "--device", "cpu", "--out", ""]) != 0
     assert cli.main(["scenes"]) == 0

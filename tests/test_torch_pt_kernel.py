@@ -29,6 +29,19 @@ from se195_raytracer_tpu_torch.driver.render import render
 from se195_raytracer_tpu_torch.kernels import pt_kernel as ptk
 from se195_raytracer_tpu_torch.scenes.registry import get_scene
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Each test runs the port's CPU code on one intra-op thread: the suite
+    runs several pytest workers at once, and torch's OpenMP threads, one
+    team per worker, then stall each other on the plain tracers' many small
+    ops."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # 1536 pixels in 2048 lanes: the pad lanes are exercised too.
 W, H = 48, 32
 CASES = [("pt", "mwc"), ("dl", "mwc"), ("pt", "counter")]

@@ -34,6 +34,19 @@ from se195_raytracer_tpu_torch.kernels import whitted_kernel as wk
 from se195_raytracer_tpu_torch.models import whitted as W
 from se195_raytracer_tpu_torch.scenes.whitted_scenes import WHITTED_SCENES
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Each test runs the port's CPU code on one intra-op thread: the suite
+    runs several pytest workers at once, and torch's OpenMP threads, one
+    team per worker, then stall each other on the plain tracers' many small
+    ops."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FIELDS = ("normal", "depth", "center", "radius", "color", "refl", "diff", "refr",
           "refr_index", "spec")
 FRAME = dict(width=40, height=30, supersample=2, trace_depth=3)
