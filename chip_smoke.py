@@ -4,7 +4,7 @@
 
 1. prints the card's name and power limit, builds every kernel from
    kernels/csrc/ with nvcc (sm_90a, one process per source) and prints the
-   build time;
+   build time and each kernel's ptxas registers, stack frame and spills;
 2. K1 (csrc/pt_kernel.cu, small scenes) against its plain PyTorch version
    (pt_pass_reference) on the card: Cornell 512x512, 1 spp, for PT/mwc,
    DL/mwc and PT/counter, and progressive resume (1+1 vs 2 spp);
@@ -17,12 +17,15 @@
    PT/counter; cull on against cull off, bitwise, at 512x512, 1 spp;
 6. the complex783 main path (CLI and ``render``, 512x512, 8 spp: one K2
    launch per render, no K1 launch) and K2 timing, its bound counted from
-   the per-ray culled work of the plain version;
+   the per-ray culled work of the plain version, K2's own per-ray tests
+   beside it, and the K2 split (max_depth 1 and 7, PT and DL, cull on and
+   off, each with its work count);
 7. K3 (csrc/whitted_kernel.cu) against the plain Whitted tracer on room and
    grid at 800x600, 3x3, depth 5, through the explicit-ray entry and the
    frame entry, for hit_bias 0 and 0.005;
 8. the Whitted main path (CLI and ``render_whitted``, room 800x600 3x3:
-   one K3 launch per render) and K3 timing;
+   one K3 launch per render), K3 timing and the K3 split (trace_depth 1, 2,
+   5 x supersample 1, 3, each with the plain tracer's live nodes);
 9. K5 (the texel fetch of csrc/whitted5_kernel.cu, alone) against
    models/whitted5._texel, bitwise, on 2^18 lanes of two atlases: the
    procedural room5 one and a 2 x 200 x 200 u8/256 one written as TGA files
@@ -49,6 +52,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -110,6 +114,13 @@ W5_SEED = 3
 # components outside isclose(1e-3, 1e-3), the image mean, the primary hits.
 K4_P99, K4_BAD, K4_MEAN_RTOL, K4_IDX = 1e-4, 1e-3, 1e-4, 0.9999
 K4_DET_TOL = 1e-5
+
+
+# Diagnostic splits (one line per kernel): K3's frame at (trace_depth,
+# supersample), room 800x600; K2 at (max_depth, integrator), complex783
+# 512x512 x 8 spp, cull on and off.
+K3_SPLIT = ((1, 1), (2, 1), (5, 1), (1, 3), (2, 3), (5, 3))
+K2_SPLIT = ((1, "pt"), (7, "pt"), (7, "dl"))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -262,6 +273,127 @@ def run_main_path(scene_name, width, height, spp, out_png, want):
     return img, cfg, launches
 
 
+def designed_in(kernel: str) -> str | None:
+    """The change that last designed ``kernel`` ("K1" .. "K5"): the last
+    "PR n" in the Status column of its row in PERF.md's kernel table, the
+    record that names it. None in a checkout that carries no PERF.md (the
+    program needs none of the documents); fails when the file is there and
+    its row or the name is missing."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "PERF.md")
+    if not os.path.exists(path):
+        print(f"  no PERF.md beside the script: designed_in of {kernel} is null",
+              file=sys.stderr)
+        return None
+    with open(path) as f:
+        rows = [line.split("|") for line in f if line.startswith(f"| {kernel} |")]
+    found = re.findall(r"PR \d+", rows[0][3]) if rows else []
+    check(bool(found), f"PERF.md's kernel table names no PR in {kernel}'s Status column")
+    return found[-1]
+
+
+def ptxas_summary(log: str):
+    """(kernel, registers, stack frame bytes, spill store bytes, spill load
+    bytes) for each entry function in an ``nvcc -Xptxas -v`` log; template
+    arguments shown as <a,b,...> (1 = true)."""
+    rows, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled, i, parts = m.group(1), 3 if m.group(1).startswith("_ZN") else 2, []
+            while (num := re.match(r"\d+", mangled[i:])):  # length-prefixed name parts
+                i += len(num.group(0))
+                parts.append(mangled[i:i + int(num.group(0))])
+                i += int(num.group(0))
+            args = re.findall(r"L[bi](\d+)E", mangled[i:])
+            name = (parts[-1] if parts else mangled) + (f"<{','.join(args)}>" if args else "")
+            frame = None
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            frame = tuple(int(x) for x in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1))) + (frame or (0, 0, 0)))
+            name = None
+    return rows
+
+
+def print_ptxas(logs, tag=""):
+    for src, log in logs.items():
+        for name, regs, frame, st, ld in ptxas_summary(log):
+            print(f"  ptxas {tag}{src} {name}: {regs} registers, {frame} B stack frame, "
+                  f"{st} B spill stores, {ld} B spill loads")
+        for line in log.splitlines():
+            if "error" in line.lower() or "warning" in line.lower():
+                print(f"  nvcc {tag}{src}: {line.strip()}")
+
+
+def k3_split(scene, width, height, works):
+    """K3's frame ms at each (trace_depth, supersample) of K3_SPLIT beside
+    the plain tracer's live nodes (``works``: {(depth, ss): work}, filled
+    where missing). Time per live node that grows with depth means
+    divergence; time that follows the nodes, the cost per node. Returns the
+    rows."""
+    from se195_raytracer_tpu_torch.kernels import whitted_kernel as wk
+    from se195_raytracer_tpu_torch.models import whitted as W
+
+    rows = {}
+    for depth, ss in K3_SPLIT:
+        work = works.get((depth, ss))
+        if work is None:
+            work = works[(depth, ss)] = {}
+            W.render_whitted_scene(scene, width, height, ss, depth, ray_tile=1 << 20, work=work)
+        ms, _ = median_ms(lambda: wk.whitted_frame_cuda(
+            scene, width=width, height=height, supersample=ss, trace_depth=depth), reps=5)
+        rows[f"depth{depth} ss{ss}"] = dict(ms=ms, nodes=work["nodes"],
+                                            ns_per_node=ms * 1e6 / work["nodes"])
+    print("  K3 split (room %dx%d): " % (width, height) + "; ".join(
+        f"{k} {v['ms']:.4f} ms / {v['nodes']} live nodes = {v['ns_per_node']:.5f} ns"
+        for k, v in rows.items()))
+    return rows
+
+
+def k2_split(width, height, spp, works, pass_fn=None):
+    """K2's ms at each (max_depth, integrator) of K2_SPLIT, cull on and off,
+    beside ``culled_work_counter``'s counts of the same render (the JAX
+    algorithm's per-ray culled work and K2's own per-ray tests; ``works``:
+    {(max_depth, integrator): work}, filled where missing).
+    ``pass_fn(scene_tab, cam_tab, s0, s1, acc, pix, cull, **kw)`` runs K2
+    (default ``pt_blocked_pass``). Returns the rows."""
+    from se195_raytracer_tpu_torch.kernels import pt_kernel as ptk
+
+    if pass_fn is None:
+        def pass_fn(scene_tab, cam_tab, s0, s1, acc, pix, cull, **kw):
+            return ptk.pt_blocked_pass(scene_tab, cam_tab, 0, s0, s1, acc, pix, cull=cull, **kw)
+    rows = {}
+    for max_depth, integ in K2_SPLIT:
+        scene_tab, cam_tab, (s0, s1, acc), pix, kw = pass_inputs(
+            COMPLEX, width, height, integ, "mwc", "cuda")
+        kw.update(max_depth=max_depth, num_samples=spp)
+        work = works.get((max_depth, integ))
+        if work is None:
+            hook, work = ptk.culled_work_counter(scene_tab)
+            ptk.pt_pass_reference(scene_tab, cam_tab, 0, s0, s1, acc, pix, on_sweep=hook, **kw)
+            works[(max_depth, integ)] = work
+        on, _ = median_ms(lambda: pass_fn(scene_tab, cam_tab, s0, s1, acc, pix, True, **kw), reps=5)
+        off, _ = median_ms(lambda: pass_fn(scene_tab, cam_tab, s0, s1, acc, pix, False, **kw),
+                           reps=3)
+        rays = work["nearest_rays"] + work["shadow_rays"]
+        tests = work["nearest_tests"] + work["shadow_tests"]
+        own = work["kernel_nearest_tests"] + work["kernel_shadow_tests"]
+        rows[f"{integ} max_depth {max_depth}"] = dict(ms=on, nocull_ms=off, work=work)
+        print(f"  K2 split {integ} max_depth {max_depth}: cull on {on:.4f} ms, off {off:.4f} ms; "
+              f"{work['nearest_rays']} nearest + {work['shadow_rays']} shadow sweeps; per sweep "
+              f"{tests / rays:.2f} sphere + {work['bound_tests'] / rays:.2f} bound tests (JAX "
+              f"culled work), K2's own {own / rays:.2f} sphere + "
+              f"{work['kernel_bound_tests'] / rays:.2f} block + "
+              f"{work['kernel_group_tests'] / rays:.2f} group tests; "
+              f"{on * 1e6 / max(tests, 1):.5f} ns per culled-work sphere test")
+    return rows
+
+
 def median_ms(fn, reps=REPS):
     """Median over ``reps`` of one call timed with CUDA events, after one
     warm-up call."""
@@ -379,6 +511,7 @@ def k1_section():
     return {
         "name": "K1 pt_multi_pass",
         "route": "cuda",
+        "designed_in": designed_in("K1"),
         "source": "se195_raytracer_tpu_torch/kernels/csrc/pt_kernel.cu",
         "replaces": "se195_raytracer_tpu/kernels/pt_kernel.py:200",
         "launches": launches["K1"],
@@ -465,10 +598,16 @@ def k2_section():
     print(f"  culled sweep: {work['nearest_tests'] + work['shadow_tests']} sphere tests of "
           f"{full} unculled ({(work['nearest_tests'] + work['shadow_tests']) / full:.2%}), "
           f"{work['bound_tests']} bound tests, nb {nb}")
+    own = work["kernel_nearest_tests"] + work["kernel_shadow_tests"]
+    print(f"  K2's own sweep, per ray: {own} sphere tests ({own / full:.2%} of unculled), "
+          f"{work['kernel_bound_tests']} block and half-block bound tests, "
+          f"{work['kernel_group_tests']} group and remainder bound tests")
     bound_ms, bound_by = bound(ops, STATE_BYTES_PER_LANE * s0.shape[0], kernel_ms, "K2")
+    split = k2_split(WIDTH, HEIGHT, SPP, {(7, "pt"): work})
     return {
         "name": "K2 pt_blocked_pass",
         "route": "cuda",
+        "designed_in": designed_in("K2"),
         "source": "se195_raytracer_tpu_torch/kernels/csrc/pt_kernel.cu",
         "replaces": "se195_raytracer_tpu/kernels/pt_kernel.py:366",
         "launches": launches["K2"],
@@ -487,6 +626,7 @@ def k2_section():
         "kernel_rays_per_s": rays / kernel_ms * 1e3,
         "peak_mem_bytes": peak_mem,
         "work": work,
+        "split": split,
     }
 
 
@@ -577,9 +717,11 @@ def k3_section():
           f"{work['hit_nodes']}, shadow tests {work['shadow_tests']}; {planes} planes, "
           f"{spheres} spheres, {sphere_lights} sphere lights")
     bound_ms, bound_by = bound(ops, h * w * 3 * 4, kernel_ms, "K3")
+    split = k3_split(scene, w, h, {(depth, ss): work})
     return {
         "name": "K3 whitted_frame_cuda / whitted_trace_cuda",
         "route": "cuda",
+        "designed_in": designed_in("K3"),
         "source": "se195_raytracer_tpu_torch/kernels/csrc/whitted_kernel.cu",
         "replaces": "se195_raytracer_tpu/kernels/whitted_kernel.py:121",
         "launches": launches["K3"],
@@ -594,6 +736,7 @@ def k3_section():
         "kernel_rays_per_s": rays / kernel_ms * 1e3,
         "peak_mem_bytes": peak_mem,
         "work": work,
+        "split": split,
     }
 
 
@@ -953,6 +1096,7 @@ def w5_summary(cells, k5, errs, main_launches, frac):
     k4 = {
         "name": "K4 whitted5_trace_cuda",
         "route": "cuda",
+        "designed_in": designed_in("K4"),
         "source": "se195_raytracer_tpu_torch/kernels/csrc/whitted5_kernel.cu",
         "replaces": "se195_raytracer_tpu/kernels/whitted5_kernel.py:151",
         "launches": main_launches["K4"],
@@ -970,6 +1114,7 @@ def w5_summary(cells, k5, errs, main_launches, frac):
     k5e = {
         "name": "K5 texel fetch (device function inside K4; texel_fetch_cuda alone)",
         "route": "cuda",
+        "designed_in": designed_in("K5"),
         "source": "se195_raytracer_tpu_torch/kernels/csrc/whitted5_kernel.cu",
         "replaces": "se195_raytracer_tpu/kernels/texel_kernel.py:116",
         "launches": main_launches["K5"],
@@ -995,10 +1140,7 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = build_all(sources())
     print(f"[1] built {', '.join(sources())} in {time.perf_counter() - t0:.2f} s")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                print(f"  ptxas {name}:", line.strip())
+    print_ptxas(logs)
 
     t = time.perf_counter()
     kernels = [k1_section()]

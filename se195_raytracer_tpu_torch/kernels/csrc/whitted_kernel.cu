@@ -10,23 +10,46 @@
 // sphere lights' centers, N.L diffuse plus Phong^20, and the reflection and
 // refraction children with Beer's law on the parent's travel distance.
 //
-// What bounds it on this card: FP32 compute. A live node costs a nearest
-// sweep over the N primitives (~10-17 ops each) and a shadow sweep over the
-// non-light primitives for each sphere light; device memory sees only the
-// finished frame (12 bytes per pixel) and the rays of the explicit entry.
-// What the design does about it:
-//   * the [18, N] primitive table, the type and light flags and the camera
-//     row sit in shared memory, read by every thread at the same time;
+// What bounds it on this card: FP32 work that the build cannot fuse. A
+// live node costs a nearest sweep over the N primitives (~10-17 ops each,
+// with an IEEE division per plane and an IEEE sqrtf per sphere) and a
+// shadow sweep over the non-light primitives for each sphere light; device
+// memory sees only the finished frame (12 bytes per pixel) and the rays of
+// the explicit entry. Built with -fmad=false (below), the card issues at
+// most half of its 67 TFLOP/s FP32 peak, so K3 can reach at most 50% of a
+// bound stated against that peak. The work per ray is very uneven (1 node
+// over the walls, up to 63 over the glass spheres), so what the design
+// fights is divergence and the tail, then instruction count per test:
+//   * one thread per subsample ray (frame entry): a block of kThreads
+//     threads traces the ss^2 camera rays of floor(kThreads / ss^2)
+//     neighbouring pixels, so a warp holds neighbouring subsample rays,
+//     which walk similar trees; at 800x600 3x3 that is 4,320,000 threads,
+//     ~16 waves of the card, so no long tail of slow pixels. Each ray's
+//     color goes to shared memory; the pixel's sum is then read back in ray
+//     order (tx outer, ty inner, from subsample 0), as the plain version's
+//     reduce_subsamples sums it, x 256/ss^2, clamped, written [H, W, 3]
+//     (held bitwise against the plain render on the card, also where the
+//     last block is partial: test_k3_bitwise_on_cuda, chip_smoke.py);
+//   * at scene load the [18, N] table is repacked in shared memory into
+//     records that a warp reads as 16-byte broadcasts: geometry (plane
+//     normal and depth, or sphere center and r^2) in one float4, color and
+//     refl in a second, diff / spec / refr / refr_index in a third; a kind
+//     word per primitive (plane, light). The nearest fold still runs
+//     0..N-1 with its strict < and hit_bias. The shadow sweep runs over a
+//     list of the non-light primitives, spheres first: its result is an
+//     any(), which no order changes, and inside the room the walls never
+//     occlude a light, so the spheres find the occluders sooner. The
+//     lights are a list too;
 //   * the tree is walked depth first, pre-order, reflection before
-//     refraction, with an explicit per-thread stack of the pending
-//     refraction children (at most trace_depth entries of 12 floats): the
-//     reference's ray queue (raytracer_kernel.cl:34-44), not a 63 x 13 heap
-//     of node state per ray. Only live nodes are traced, so dead subtrees
-//     cost nothing. Pre-order is also the order in which the plain
-//     version (models/whitted.whitted_trace) sums the nodes;
-//   * the frame entry gives each thread one pixel: it makes the ss^2
-//     camera rays itself (tx outer, ty inner), sums their trees, scales by
-//     256/ss^2, clamps and writes [H, W, 3]. No rays cross device memory;
+//     refraction (the order in which the plain version, models/whitted.
+//     whitted_trace, sums the nodes); only live nodes are traced, so dead
+//     subtrees cost nothing. A pending refraction child is 12 words
+//     (origin, direction, weight, transparency, index of refraction,
+//     level): it needs neither the parent's color nor a type. The stack of
+//     at most trace_depth such entries is a local array, which L1 holds: a
+//     slice of shared memory per thread ([slot][word][thread], 240 bytes
+//     at depth 5) was measured 8% slower on the room frame, because it cut
+//     the threads an SM holds from 1024 to 768;
 //   * the shadow sweep stops at its first occluder (the reference breaks
 //     there too, raytrace:199-212).
 //
@@ -45,23 +68,50 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRows = 18;  // pack_whitted_scene rows
+constexpr int kThreads = 256;
 constexpr int kMaxDepth = 8;
+constexpr int kStackWords = 12;  // one pending refraction child
 constexpr float kEps = 0.001f;    // W_EPSILON (raytracer_kernel.cl:30)
 constexpr float kBeer = 0.15f;    // raytracer_kernel.cl:370
 constexpr float kMaxDist = 1e6f;  // whitted_kernel.py:302
 
-// Table rows: 0 type | 1-3 plane normal | 4 plane depth | 5-7 center |
-// 8 sq_radius | 9 r_radius | 10-12 color | 13 refl | 14 diff | 15 spec |
-// 16 refr | 17 refr_index.
+// Kind bits of a primitive.
+constexpr int kPlane = 1;
+constexpr int kLight = 2;
+
+// The scene as the kernel reads it, in shared memory (see Layout).
 struct Scene {
-  const float* t;    // [kRows, n]
-  const int* light;  // [n] 1 for a light
-  int n;
+  const float4* geom;  // plane (nx, ny, nz, depth) | sphere (cx, cy, cz, r^2)
+  const float4* col;   // (r, g, b, refl)
+  const float4* mat;   // (diff, spec, refr, refr_index)
+  const float4* lpos;  // per light: table center (x, y, z), w = 1 for a plane
+  const float4* lcol;  // per light: (r, g, b, 0)
+  const float* rrad;   // 1 / radius
+  const int* kind;     // kPlane | kLight
+  const int* occ;      // the non-light primitives: spheres, then planes
+  int n, nl, no;
   float bias;
-  __device__ float at(int row, int j) const { return t[row * n + j]; }
-  __device__ bool plane(int j) const { return t[j] == 0.0f; }
+};
+
+// Byte offsets of the dynamic shared memory: 5 float4 records per
+// primitive, then 1 / radius, kind and the occluder list, the two list
+// lengths, the camera row and the block's ray colors.
+struct Layout {
+  size_t geom, col, mat, lpos, lcol, rrad, kind, occ, counts, cam, color, total;
+  __host__ __device__ Layout(int n, int color_floats) {
+    geom = 0;
+    col = geom + 16 * (size_t)n;
+    mat = col + 16 * (size_t)n;
+    lpos = mat + 16 * (size_t)n;
+    lcol = lpos + 16 * (size_t)n;
+    rrad = lcol + 16 * (size_t)n;
+    kind = rrad + 4 * (size_t)n;
+    occ = kind + 4 * (size_t)n;
+    counts = occ + 4 * (size_t)n;
+    cam = counts + 8;
+    color = cam + 4 * 12;
+    total = color + 4 * (size_t)color_floats;
+  }
 };
 
 __device__ __forceinline__ float pow20(float x) {
@@ -71,17 +121,16 @@ __device__ __forceinline__ float pow20(float x) {
   return x10 * x10;
 }
 
-// Sphere quadratic (raytracer_kernel.cl:104-137). Returns false on a miss
-// or when the sphere is wholly behind the origin.
-__device__ __forceinline__ bool sphere_roots(const Scene& s, int j, float ox,
-                                             float oy, float oz, float dx,
-                                             float dy, float dz, float& i1,
-                                             float& i2) {
-  const float vx = ox - s.at(5, j);
-  const float vy = oy - s.at(6, j);
-  const float vz = oz - s.at(7, j);
+// Sphere quadratic (raytracer_kernel.cl:104-137) on g = (center, r^2).
+// Returns false on a miss or when the sphere is wholly behind the origin.
+__device__ __forceinline__ bool sphere_roots(float4 g, float ox, float oy,
+                                             float oz, float dx, float dy,
+                                             float dz, float& i1, float& i2) {
+  const float vx = ox - g.x;
+  const float vy = oy - g.y;
+  const float vz = oz - g.z;
   const float b = -(vx * dx + vy * dy + vz * dz);
-  const float det = b * b - (vx * vx + vy * vy + vz * vz) + s.at(8, j);
+  const float det = b * b - (vx * vx + vy * vy + vz * vz) + g.w;
   if (!(det > 0.0f)) return false;
   const float sq = sqrtf(det);
   i1 = b - sq;
@@ -89,15 +138,15 @@ __device__ __forceinline__ bool sphere_roots(const Scene& s, int j, float ox,
   return i2 > 0.0f;
 }
 
-// Plane test (raytracer_kernel.cl:89-102). Returns false when parallel or
-// behind.
-__device__ __forceinline__ bool plane_dist(const Scene& s, int j, float ox,
-                                           float oy, float oz, float dx,
-                                           float dy, float dz, float& dist) {
-  const float nd = s.at(1, j) * dx + s.at(2, j) * dy + s.at(3, j) * dz;
-  const float no = s.at(1, j) * ox + s.at(2, j) * oy + s.at(3, j) * oz;
+// Plane test (raytracer_kernel.cl:89-102) on g = (normal, depth). Returns
+// false when parallel or behind.
+__device__ __forceinline__ bool plane_dist(float4 g, float ox, float oy,
+                                           float oz, float dx, float dy,
+                                           float dz, float& dist) {
+  const float nd = g.x * dx + g.y * dy + g.z * dz;
+  const float no = g.x * ox + g.y * oy + g.z * oz;
   const float nd_safe = nd != 0.0f ? nd : 1.0f;
-  dist = -(no + s.at(4, j)) / nd_safe;
+  dist = -(no + g.w) / nd_safe;
   return nd != 0.0f && dist > 0.0f;
 }
 
@@ -109,16 +158,17 @@ __device__ int nearest(const Scene& s, float ox, float oy, float oz, float dx,
   res = 0.0f;
   int idx = -1;
   for (int j = 0; j < s.n; ++j) {
-    if (s.plane(j)) {
+    const float4 g = s.geom[j];
+    if (s.kind[j] & kPlane) {
       float pd;
-      if (plane_dist(s, j, ox, oy, oz, dx, dy, dz, pd) && pd < cumu) {
+      if (plane_dist(g, ox, oy, oz, dx, dy, dz, pd) && pd < cumu) {
         cumu = pd;
         idx = j;
         res = 1.0f;
       }
     } else {
       float i1, i2;
-      if (!sphere_roots(s, j, ox, oy, oz, dx, dy, dz, i1, i2)) continue;
+      if (!sphere_roots(g, ox, oy, oz, dx, dy, dz, i1, i2)) continue;
       const bool inprim = i1 < 0.0f && i2 < cumu;
       const bool hit_near = i1 >= 0.0f && i1 < cumu + s.bias;
       if (inprim || hit_near) {
@@ -132,17 +182,18 @@ __device__ int nearest(const Scene& s, float ox, float oy, float oz, float dx,
 }
 
 // Shadow predicate (raytrace:199-212): a non-light primitive closer than
-// maxt. Stops at the first one.
+// maxt. Stops at the first one; any order gives the same answer.
 __device__ bool occluded(const Scene& s, float ox, float oy, float oz,
                          float dx, float dy, float dz, float maxt) {
-  for (int j = 0; j < s.n; ++j) {
-    if (s.light[j]) continue;
-    if (s.plane(j)) {
+  for (int k = 0; k < s.no; ++k) {
+    const int j = s.occ[k];
+    const float4 g = s.geom[j];
+    if (s.kind[j] & kPlane) {
       float pd;
-      if (plane_dist(s, j, ox, oy, oz, dx, dy, dz, pd) && pd < maxt) return true;
+      if (plane_dist(g, ox, oy, oz, dx, dy, dz, pd) && pd < maxt) return true;
     } else {
       float i1, i2;
-      if (sphere_roots(s, j, ox, oy, oz, dx, dy, dz, i1, i2) &&
+      if (sphere_roots(g, ox, oy, oz, dx, dy, dz, i1, i2) &&
           (i1 < 0.0f ? i2 < maxt : i1 < maxt + s.bias))
         return true;
     }
@@ -150,9 +201,9 @@ __device__ bool occluded(const Scene& s, float ox, float oy, float oz,
   return false;
 }
 
-// One tree node: a ray with its scalar weight, Beer transparency, the
-// immediate parent's color (reflection rays only) and the refractive index
-// it travels in.
+// The ray being traced: a tree node with its scalar weight, Beer
+// transparency, the immediate parent's color (reflection rays only) and the
+// refractive index it travels in.
 struct Ray {
   float ox, oy, oz, dx, dy, dz;
   float weight;
@@ -167,7 +218,8 @@ struct Ray {
 __device__ void trace_tree(const Scene& s, float ox, float oy, float oz,
                            float dx, float dy, float dz, int trace_depth,
                            float& out_r, float& out_g, float& out_b) {
-  Ray stack[kMaxDepth];
+  // The pending refraction children, kStackWords words each.
+  float stack[kMaxDepth * kStackWords];
   int top = 0;
   Ray ray{ox, oy, oz, dx, dy, dz, 1.0f, 1.0f, 1.0f, 1.0f,
           1.0f, 1.0f, 1.0f, 1.0f, 0, 0};
@@ -185,32 +237,38 @@ __device__ void trace_tree(const Scene& s, float ox, float oy, float oz,
     float col_r = 0.0f, col_g = 0.0f, col_b = 0.0f;
     float nx = 0.0f, ny = 0.0f, nz = 0.0f;
     if (hit) {
-      if (s.plane(idx)) {
-        nx = s.at(1, idx);
-        ny = s.at(2, idx);
-        nz = s.at(3, idx);
+      const float4 g = s.geom[idx];
+      const int kind = s.kind[idx];
+      const float4 hcol = s.col[idx];
+      if (kind & kPlane) {
+        nx = g.x;
+        ny = g.y;
+        nz = g.z;
       } else {
-        nx = (px - s.at(5, idx)) * s.at(9, idx);
-        ny = (py - s.at(6, idx)) * s.at(9, idx);
-        nz = (pz - s.at(7, idx)) * s.at(9, idx);
+        const float rr = s.rrad[idx];
+        nx = (px - g.x) * rr;
+        ny = (py - g.y) * rr;
+        nz = (pz - g.z) * rr;
       }
-      const float m_r = s.at(10, idx), m_g = s.at(11, idx), m_b = s.at(12, idx);
-      if (s.light[idx]) {
+      const float m_r = hcol.x, m_g = hcol.y, m_b = hcol.z;
+      if (kind & kLight) {
         col_r = m_r;
         col_g = m_g;
         col_b = m_b;
       } else {
-        const float m_diff = s.at(14, idx), m_spec = s.at(15, idx);
-        for (int li = 0; li < s.n; ++li) {
-          if (!s.light[li]) continue;
-          const float lvx = s.at(5, li) - px;
-          const float lvy = s.at(6, li) - py;
-          const float lvz = s.at(7, li) - pz;
+        const float4 hmat = s.mat[idx];
+        const float m_diff = hmat.x, m_spec = hmat.y;
+        for (int k = 0; k < s.nl; ++k) {
+          const float4 lp = s.lpos[k];
+          const float4 lc = s.lcol[k];
+          const float lvx = lp.x - px;
+          const float lvy = lp.y - py;
+          const float lvz = lp.z - pz;
           const float llen =
               sqrtf(fmaxf(lvx * lvx + lvy * lvy + lvz * lvz, 1e-30f));
           const float ldx = lvx / llen, ldy = lvy / llen, ldz = lvz / llen;
           float shade = 1.0f;
-          if (!s.plane(li) &&
+          if (lp.w == 0.0f &&
               occluded(s, px + ldx * kEps, py + ldy * kEps, pz + ldz * kEps,
                        ldx, ldy, ldz, llen))
             shade = 0.0f;
@@ -218,9 +276,9 @@ __device__ void trace_tree(const Scene& s, float ox, float oy, float oz,
           const float dnl = nx * ldx + ny * ldy + nz * ldz;
           if (m_diff > 0.0f && dnl > 0.0f) {
             const float dterm = dnl * m_diff * shade;
-            col_r = col_r + dterm * m_r * s.at(10, li);
-            col_g = col_g + dterm * m_g * s.at(11, li);
-            col_b = col_b + dterm * m_b * s.at(12, li);
+            col_r = col_r + dterm * m_r * lc.x;
+            col_g = col_g + dterm * m_g * lc.y;
+            col_b = col_b + dterm * m_b * lc.z;
           }
           // Specular: R = L - 2 dot(L, N) N; powr(dot(V, R), 20) (:225-236).
           const float k2 = 2.0f * dnl;
@@ -231,9 +289,9 @@ __device__ void trace_tree(const Scene& s, float ox, float oy, float oz,
           const float sterm = (m_spec > 0.0f && dvr > 0.0f)
                                   ? pow20(fmaxf(dvr, 0.0f)) * m_spec * shade
                                   : 0.0f;
-          col_r = col_r + sterm * s.at(10, li);
-          col_g = col_g + sterm * s.at(11, li);
-          col_b = col_b + sterm * s.at(12, li);
+          col_r = col_r + sterm * lc.x;
+          col_g = col_g + sterm * lc.y;
+          col_b = col_b + sterm * lc.z;
         }
       }
     }
@@ -255,10 +313,12 @@ __device__ void trace_tree(const Scene& s, float ox, float oy, float oz,
 
     bool next = false;
     if (hit && ray.level < trace_depth) {
-      const float c_r = s.at(10, idx), c_g = s.at(11, idx), c_b = s.at(12, idx);
+      const float4 hcol = s.col[idx];
+      const float4 hmat = s.mat[idx];
+      const float c_r = hcol.x, c_g = hcol.y, c_b = hcol.z;
       // Refraction child (raytracer_kernel.cl:350-372), kept for later.
-      const float refr_f = s.at(16, idx);
-      const float m_ri = s.at(17, idx);
+      const float refr_f = hmat.z;
+      const float m_ri = hmat.w;
       const float ridx_m = m_ri != 0.0f ? m_ri : 1.0f;
       const float n_ratio = ray.ridx / ridx_m;
       const float n2x = nx * res, n2y = ny * res, n2z = nz * res;
@@ -269,24 +329,23 @@ __device__ void trace_tree(const Scene& s, float ox, float oy, float oz,
         const float tdx = n_ratio * ray.dx + kk * n2x;
         const float tdy = n_ratio * ray.dy + kk * n2y;
         const float tdz = n_ratio * ray.dz + kk * n2z;
-        Ray& c = stack[top++];
-        c.ox = px + tdx * kEps;
-        c.oy = py + tdy * kEps;
-        c.oz = pz + tdz * kEps;
-        c.dx = tdx;
-        c.dy = tdy;
-        c.dz = tdz;
-        c.weight = ray.weight;
+        stack[top * kStackWords + 0] = px + tdx * kEps;
+        stack[top * kStackWords + 1] = py + tdy * kEps;
+        stack[top * kStackWords + 2] = pz + tdz * kEps;
+        stack[top * kStackWords + 3] = tdx;
+        stack[top * kStackWords + 4] = tdy;
+        stack[top * kStackWords + 5] = tdz;
+        stack[top * kStackWords + 6] = ray.weight;
         // Beer's law with the PARENT ray's travel distance (:370).
-        c.tr = ray.tr * expf(c_r * kBeer * (-dist));
-        c.tg = ray.tg * expf(c_g * kBeer * (-dist));
-        c.tb = ray.tb * expf(c_b * kBeer * (-dist));
-        c.ridx = ridx_m;
-        c.level = ray.level + 1;
-        c.type = 2;
+        stack[top * kStackWords + 7] = ray.tr * expf(c_r * kBeer * (-dist));
+        stack[top * kStackWords + 8] = ray.tg * expf(c_g * kBeer * (-dist));
+        stack[top * kStackWords + 9] = ray.tb * expf(c_b * kBeer * (-dist));
+        stack[top * kStackWords + 10] = ridx_m;
+        stack[top * kStackWords + 11] = __int_as_float(ray.level + 1);
+        ++top;
       }
       // Reflection child (raytracer_kernel.cl:332-348), traced next.
-      const float refl_f = s.at(13, idx);
+      const float refl_f = hcol.w;
       if (refl_f > 0.0f) {
         const float k2 = 2.0f * (ray.dx * nx + ray.dy * ny + ray.dz * nz);
         const float rdx = ray.dx - k2 * nx;
@@ -309,7 +368,20 @@ __device__ void trace_tree(const Scene& s, float ox, float oy, float oz,
     }
     if (!next) {
       if (top == 0) break;
-      ray = stack[--top];
+      --top;
+      ray.ox = stack[top * kStackWords + 0];
+      ray.oy = stack[top * kStackWords + 1];
+      ray.oz = stack[top * kStackWords + 2];
+      ray.dx = stack[top * kStackWords + 3];
+      ray.dy = stack[top * kStackWords + 4];
+      ray.dz = stack[top * kStackWords + 5];
+      ray.weight = stack[top * kStackWords + 6];
+      ray.tr = stack[top * kStackWords + 7];
+      ray.tg = stack[top * kStackWords + 8];
+      ray.tb = stack[top * kStackWords + 9];
+      ray.ridx = stack[top * kStackWords + 10];
+      ray.level = __float_as_int(stack[top * kStackWords + 11]);
+      ray.type = 2;
     }
   }
   out_r = acc_r;
@@ -317,10 +389,53 @@ __device__ void trace_tree(const Scene& s, float ox, float oy, float oz,
   out_b = acc_b;
 }
 
-__device__ void load_scene(const float* table, const int* light, int n,
-                           float* st, int* sl) {
-  for (int i = threadIdx.x; i < kRows * n; i += blockDim.x) st[i] = table[i];
-  for (int i = threadIdx.x; i < n; i += blockDim.x) sl[i] = light[i];
+// Repacks the [kRows, n] table into the records of Layout and builds the
+// light and occluder lists. Ends with the block synchronised.
+__device__ Scene load_scene(const float* t, const int* light, int n,
+                            float bias, unsigned char* smem, const Layout& L) {
+  float4* geom = reinterpret_cast<float4*>(smem + L.geom);
+  float4* col = reinterpret_cast<float4*>(smem + L.col);
+  float4* mat = reinterpret_cast<float4*>(smem + L.mat);
+  float4* lpos = reinterpret_cast<float4*>(smem + L.lpos);
+  float4* lcol = reinterpret_cast<float4*>(smem + L.lcol);
+  float* rrad = reinterpret_cast<float*>(smem + L.rrad);
+  int* kind = reinterpret_cast<int*>(smem + L.kind);
+  int* occ = reinterpret_cast<int*>(smem + L.occ);
+  int* counts = reinterpret_cast<int*>(smem + L.counts);
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    const bool plane = t[j] == 0.0f;
+    geom[j] = plane ? make_float4(t[n + j], t[2 * n + j], t[3 * n + j], t[4 * n + j])
+                    : make_float4(t[5 * n + j], t[6 * n + j], t[7 * n + j],
+                                  t[8 * n + j]);
+    col[j] = make_float4(t[10 * n + j], t[11 * n + j], t[12 * n + j],
+                         t[13 * n + j]);
+    mat[j] = make_float4(t[14 * n + j], t[15 * n + j], t[16 * n + j],
+                         t[17 * n + j]);
+    rrad[j] = t[9 * n + j];
+    kind[j] = (plane ? kPlane : 0) | (light[j] ? kLight : 0);
+  }
+  if (threadIdx.x == 0) {
+    int nl = 0, no = 0;
+    for (int j = 0; j < n; ++j) {
+      const bool plane = t[j] == 0.0f;
+      if (light[j]) {
+        lpos[nl] = make_float4(t[5 * n + j], t[6 * n + j], t[7 * n + j],
+                               plane ? 1.0f : 0.0f);
+        lcol[nl] = make_float4(t[10 * n + j], t[11 * n + j], t[12 * n + j],
+                               0.0f);
+        ++nl;
+      } else if (!plane) {
+        occ[no++] = j;
+      }
+    }
+    for (int j = 0; j < n; ++j)
+      if (!light[j] && t[j] == 0.0f) occ[no++] = j;
+    counts[0] = nl;
+    counts[1] = no;
+  }
+  __syncthreads();
+  return Scene{geom, col, mat, lpos, lcol, rrad, kind, occ,
+               n, counts[0], counts[1], bias};
 }
 
 // Explicit rays: rays [6, rp] (o, d) -> acc [3, rp], one thread per ray.
@@ -329,64 +444,81 @@ whitted_rays_kernel(const float* __restrict__ table,
                     const int* __restrict__ light, int n, float bias,
                     int trace_depth, const float* __restrict__ rays,
                     float* __restrict__ acc, int rp) {
-  extern __shared__ float smem[];
-  int* sl = reinterpret_cast<int*>(smem + kRows * n);
-  load_scene(table, light, n, smem, sl);
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L(n, 0);
+  const Scene s = load_scene(table, light, n, bias, smem, L);
+  const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= rp) return;
-  const Scene s{smem, sl, n, bias};
   float r, g, b;
-  trace_tree(s, rays[i], rays[rp + i], rays[2 * rp + i], rays[3 * rp + i],
-             rays[4 * rp + i], rays[5 * rp + i], trace_depth, r, g, b);
+  trace_tree(s, rays[i], rays[rp + i], rays[2 * rp + i],
+             rays[3 * rp + i], rays[4 * rp + i], rays[5 * rp + i],
+             trace_depth, r, g, b);
   acc[i] = r;
   acc[rp + i] = g;
   acc[2 * rp + i] = b;
 }
 
-// Frame: one thread per pixel, camera rays from the cam row [O, X, Y, C]
-// (whitted_kernel.py:150-194, models/whitted.whitted_camera_rays_device),
-// the ss^2 subsamples summed tx outer, ty inner, then x 256/ss^2 and
-// clamped to 0..255 into frame [H, W, 3].
+// Frame: one thread per subsample ray. Block b traces the ss^2 camera rays
+// of pixels b*ppb .. b*ppb + ppb - 1 (ray q of the block: pixel q / ss^2,
+// subsample q % ss^2 = tx * ss + ty), made from the cam row [O, X, Y, C]
+// (whitted_kernel.py:150-194, models/whitted.whitted_camera_rays_device);
+// a thread takes rays q, q + kThreads, ... when ppb * ss^2 > kThreads. The
+// colors meet in shared memory, [3][ppb * ss^2]; each pixel's subsamples
+// are summed in ray order from subsample 0, x scale, clamped to 0..255
+// into frame [H, W, 3].
 __global__ void __launch_bounds__(kThreads)
 whitted_frame_kernel(const float* __restrict__ table,
                      const int* __restrict__ light, int n, float bias,
                      int trace_depth, const float* __restrict__ cam,
-                     int width, int height, int ss, float dxs, float dys,
-                     float hdx, float hdy, float scale,
+                     int width, int height, int ss, int ppb, float dxs,
+                     float dys, float hdx, float hdy, float scale,
                      float* __restrict__ frame) {
-  extern __shared__ float smem[];
-  int* sl = reinterpret_cast<int*>(smem + kRows * n);
-  float* cs = reinterpret_cast<float*>(sl + n);
-  load_scene(table, light, n, smem, sl);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ss2 = ss * ss;
+  const int rays = ppb * ss2;
+  const Layout L(n, 3 * rays);
+  float* cs = reinterpret_cast<float*>(smem + L.cam);
   if (threadIdx.x < 12) cs[threadIdx.x] = cam[threadIdx.x];
-  __syncthreads();
-  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= width * height) return;
-  const Scene s{smem, sl, n, bias};
-  const int x = pix % width;
-  const int y = pix / width;
+  const Scene s = load_scene(table, light, n, bias, smem, L);
+  float* color = reinterpret_cast<float*>(smem + L.color);
+  const int npix = width * height;
+  const int pix0 = blockIdx.x * ppb;
   const int half = ss / 2;
-  float sum_r = 0.0f, sum_g = 0.0f, sum_b = 0.0f;
-  for (int txi = 0; txi < ss; ++txi) {
-    for (int tyi = 0; tyi < ss; ++tyi) {
+  for (int q = threadIdx.x; q < rays; q += kThreads) {
+    const int lp = q / ss2;
+    const int sub = q - lp * ss2;
+    const int pix = pix0 + lp;
+    float r = 0.0f, g = 0.0f, b = 0.0f;
+    if (pix < npix) {
+      const int txi = sub / ss;
+      const int tyi = sub - txi * ss;
+      const int x = pix % width;
+      const int y = pix / width;
       const float sx = (-3.0f + (float)x * dxs) + (float)(txi - half) * hdx;
       const float sy = (2.25f + (float)y * dys) + (float)(tyi - half) * hdy;
       const float rdx = cs[3] * sx + cs[6] * sy + cs[9];
       const float rdy = cs[4] * sx + cs[7] * sy + cs[10];
       const float rdz = cs[5] * sx + cs[8] * sy + cs[11];
       const float inv = 1.0f / sqrtf(rdx * rdx + rdy * rdy + rdz * rdz);
-      float r, g, b;
       trace_tree(s, cs[0], cs[1], cs[2], rdx * inv, rdy * inv, rdz * inv,
                  trace_depth, r, g, b);
-      sum_r = sum_r + r;
-      sum_g = sum_g + g;
-      sum_b = sum_b + b;
     }
+    color[q] = r;
+    color[rays + q] = g;
+    color[2 * rays + q] = b;
   }
-  frame[3 * pix] = fminf(fmaxf(sum_r * scale, 0.0f), 255.0f);
-  frame[3 * pix + 1] = fminf(fmaxf(sum_g * scale, 0.0f), 255.0f);
-  frame[3 * pix + 2] = fminf(fmaxf(sum_b * scale, 0.0f), 255.0f);
+  __syncthreads();
+  // Component e of the block's output: pixel e / 3, channel e % 3, so the
+  // writes are consecutive floats of the frame.
+  for (int e = threadIdx.x; e < 3 * ppb; e += kThreads) {
+    const int lp = e / 3;
+    const int c = e - 3 * lp;
+    if (pix0 + lp >= npix) break;
+    const float* sub = color + c * rays + lp * ss2;
+    float sum = sub[0];
+    for (int k = 1; k < ss2; ++k) sum = sum + sub[k];
+    frame[3 * pix0 + e] = fminf(fmaxf(sum * scale, 0.0f), 255.0f);
+  }
 }
 
 }  // namespace
@@ -398,7 +530,7 @@ extern "C" int whitted_trace_cuda(const float* table, const int* light, int n,
                                   float bias, int trace_depth,
                                   const float* rays, float* acc, int rp,
                                   void* stream) {
-  const size_t smem = sizeof(float) * kRows * n + sizeof(int) * n;
+  const size_t smem = Layout(n, 0).total;
   const int blocks = (rp + kThreads - 1) / kThreads;
   whitted_rays_kernel<<<blocks, kThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
@@ -412,11 +544,13 @@ extern "C" int whitted_frame_cuda(const float* table, const int* light, int n,
                                   int ss, float dxs, float dys, float hdx,
                                   float hdy, float scale, float* frame,
                                   void* stream) {
-  const size_t smem = sizeof(float) * (kRows * n + 12) + sizeof(int) * n;
-  const int blocks = (width * height + kThreads - 1) / kThreads;
+  // Pixels per block (whitted_kernel.pixels_per_block).
+  const int ppb = ss * ss < kThreads ? kThreads / (ss * ss) : 1;
+  const size_t smem = Layout(n, 3 * ppb * ss * ss).total;
+  const int blocks = (width * height + ppb - 1) / ppb;
   whitted_frame_kernel<<<blocks, kThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-      table, light, n, bias, trace_depth, cam, width, height, ss, dxs, dys,
-      hdx, hdy, scale, frame);
+      table, light, n, bias, trace_depth, cam, width, height, ss, ppb, dxs,
+      dys, hdx, hdy, scale, frame);
   return static_cast<int>(cudaGetLastError());
 }

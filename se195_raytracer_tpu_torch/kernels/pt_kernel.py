@@ -4,10 +4,12 @@ their plain PyTorch version (twin of se195_raytracer_tpu/kernels/pt_kernel.py).
 ``pt_multi_pass`` runs ``num_samples`` progressive passes in one launch of
 ``csrc/pt_kernel.cu``: K1 for scenes of at most ``UNROLL_MAX_SPHERES``
 spheres, K2 (``pt_blocked_pass``, a sweep in blocks of ``SPHERE_BLOCK``
-spheres that skips the blocks a ray cannot hit) above. ``pt_pass_reference``
-computes the same passes with ``generate_camera_rays`` + ``radiance`` over the
-same lanes and state, and is what the wrappers run for tensors on the CPU
-(and what the tests and ``chip_smoke.py`` hold the kernels against).
+spheres that skips, per ray, the remainder, groups, blocks and half blocks
+whose bounds the ray cannot meet or enters beyond its best hit) above.
+``pt_pass_reference`` computes the same passes with ``generate_camera_rays``
++ ``radiance`` over the same lanes and state, and is what the wrappers run
+for tensors on the CPU (and what the tests and ``chip_smoke.py`` hold the
+kernels against).
 ``render_cuda`` is the twin of ``render_pallas``: its state ``(s0 [Rp],
 s1 [Rp], acc [3, Rp/128, 128], sample)`` has the JAX package's layout, lane
 order and pad-lane seeding, so a state can be carried across between the
@@ -49,6 +51,13 @@ TILE = SUBLANES * LANES
 UNROLL_MAX_SPHERES = 96
 # Spheres per block of K2's sweep; one bounding sphere per block.
 SPHERE_BLOCK = 16
+# Blocks per group of K2's sweep; one bounding sphere per group.
+GROUP_BLOCKS = 4
+# K2's cull widens a bound's radius R' by CULL_REACH * (|b| + 2 R'), b the
+# distance along the ray to the bound's center, so that the rounding of a
+# sphere's t and of the bound's entry, which grows with the distance, can
+# never skip a hit (kReach in csrc/pt_kernel.cu, which argues it).
+CULL_REACH = 2e-3
 # The kernels keep the scene in shared memory without opting in to more
 # than the default 48 KB.
 _MAX_SMEM_BYTES = 48 * 1024
@@ -80,19 +89,10 @@ def pack_camera(basis: CameraBasis) -> torch.Tensor:
     return torch.cat([basis.orig, basis.dir, basis.x, basis.y]).reshape(1, 12)
 
 
-def block_bounds(scene_tab: torch.Tensor) -> torch.Tensor:
-    """[4, nb] (cx, cy, cz, rad) bounding spheres of the contiguous
-    ``SPHERE_BLOCK``-sized index ranges of the scene table (the fractal
-    generator emits spheres depth first, so a range is a tight subtree).
-    The radius is inflated, x1.001 + 0.01, so that rounding in the bound
-    test can never reject a block that holds a true hit: the culled sweep
-    gives the same bits as the full one. Bitwise equal to the JAX
-    package's ``block_bounds``."""
-    n = scene_tab.shape[1]
-    nb = n // SPHERE_BLOCK
-    m = nb * SPHERE_BLOCK
-    c3 = scene_tab[0:3, :m].reshape(3, nb, SPHERE_BLOCK)
-    rad = scene_tab[3, :m].reshape(nb, SPHERE_BLOCK)
+def _bounding_spheres(scene_tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """[4, k] inflated bounding spheres of the sphere index sets idx [k, s]."""
+    c3 = scene_tab[0:3][:, idx]
+    rad = scene_tab[3][idx]
     lo = (c3 - rad[None]).amin(dim=-1)
     hi = (c3 + rad[None]).amax(dim=-1)
     bc = 0.5 * (lo + hi)  # [3, nb]
@@ -101,6 +101,71 @@ def block_bounds(scene_tab: torch.Tensor) -> torch.Tensor:
     br = (dist + rad).amax(dim=-1)
     br = br * float(np.float32(1.001)) + float(np.float32(0.01))
     return torch.cat([bc, br[None]], dim=0).contiguous()
+
+
+def block_bounds(scene_tab: torch.Tensor) -> torch.Tensor:
+    """[4, nb] (cx, cy, cz, rad) bounding spheres of the contiguous
+    ``SPHERE_BLOCK``-sized index ranges of the scene table (the fractal
+    generator emits spheres depth first, so a range is a tight subtree).
+    The radius is inflated, x1.001 + 0.01, so that rounding in the bound
+    test can never reject a block that holds a true hit: the culled sweep
+    gives the same bits as the full one. Bitwise equal to the JAX
+    package's ``block_bounds``."""
+    nb = scene_tab.shape[1] // SPHERE_BLOCK
+    idx = torch.arange(nb * SPHERE_BLOCK, device=scene_tab.device).reshape(nb, SPHERE_BLOCK)
+    return _bounding_spheres(scene_tab, idx)
+
+
+def half_bounds(scene_tab: torch.Tensor) -> torch.Tensor:
+    """[4, 2 nb] bounding spheres of the half blocks (``SPHERE_BLOCK // 2``
+    spheres; half h holds spheres 8h .. 8h+7), inflated as ``block_bounds``
+    inflates, so K2 can skip half a block exactly."""
+    nb = scene_tab.shape[1] // SPHERE_BLOCK
+    half = SPHERE_BLOCK // 2
+    idx = torch.arange(nb * SPHERE_BLOCK, device=scene_tab.device).reshape(2 * nb, half)
+    return _bounding_spheres(scene_tab, idx)
+
+
+def group_bounds(scene_tab: torch.Tensor) -> torch.Tensor:
+    """[4, ng] bounding spheres of the groups of ``GROUP_BLOCKS`` consecutive
+    blocks (ng = ceil(nb / GROUP_BLOCKS); the last group may hold fewer),
+    computed from the groups' spheres as ``block_bounds`` computes a block's
+    and inflated the same way, so K2 can skip a group, and its blocks' bound
+    tests, exactly as it skips a block."""
+    nb = scene_tab.shape[1] // SPHERE_BLOCK
+    m = nb * SPHERE_BLOCK
+    size = GROUP_BLOCKS * SPHERE_BLOCK
+    ng = (nb + GROUP_BLOCKS - 1) // GROUP_BLOCKS
+    start = torch.arange(ng, device=scene_tab.device)[:, None] * size
+    # A short last group repeats its last sphere, which moves no bound.
+    idx = torch.clamp(start + torch.arange(size, device=scene_tab.device)[None, :], max=m - 1)
+    return _bounding_spheres(scene_tab, idx)
+
+
+def remainder_bound(scene_tab: torch.Tensor) -> torch.Tensor:
+    """[4, 1] bounding sphere of the remainder, the spheres after the last
+    whole block (a zero sphere when there is none), inflated as
+    ``block_bounds`` inflates, so K2 can skip the remainder exactly."""
+    n = scene_tab.shape[1]
+    m = n // SPHERE_BLOCK * SPHERE_BLOCK
+    if n == m:
+        return torch.zeros((4, 1), dtype=scene_tab.dtype, device=scene_tab.device)
+    return _bounding_spheres(scene_tab, torch.arange(m, n, device=scene_tab.device)[None, :])
+
+
+def bound_entry(bounds: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
+                reach: float = CULL_REACH):
+    """K2's bound test in plain torch, [R] rays against [4, k] bounds:
+    (meets [R, k], entry [R, k]). ``meets``: the ray's line crosses the
+    bounding sphere, its radius widened by ``reach`` * (|b| + 2 R), ahead of
+    the origin; ``entry``: where it enters, b - sqrt(det), negative from
+    inside. ``reach=0`` is the JAX package's ``block_possible``."""
+    op = bounds[:3].T[None] - o[:, None, :]  # [R, k, 3]
+    b = dot3(op, d[:, None, :])
+    r = bounds[3] + float(np.float32(reach)) * (torch.abs(b) + 2.0 * bounds[3])
+    det = b * b - dot3(op, op) + r * r
+    sq = sqrt_rn(torch.clamp(det, min=0.0))
+    return (det >= 0.0) & ((b + sq) > 0.0), b - sq
 
 
 @functools.lru_cache(maxsize=32)
@@ -197,44 +262,100 @@ def culled_work_counter(scene_tab: torch.Tensor) -> Tuple[Callable, Dict[str, in
     remainder and of each block whose bound the ray can hit. A shadow sweep
     stops at its first occluder in the sweep's order (remainder N-1 ..
     nb*16, then blocks nb-1 .. 0), so it counts the bounds and spheres up to
-    that one."""
+    that one. These are the JAX algorithm's per-ray culled work, K2's
+    bound.
+
+    The ``kernel_*`` keys count, per ray, what K2's own sweep tests: the
+    remainder's bound and the group bounds (``kernel_group_tests``), the
+    block bounds of the groups it keeps and the half-block bounds of the
+    blocks it keeps (``kernel_bound_tests``), and the spheres of the
+    remainder and of the half blocks it keeps (``kernel_nearest_tests`` /
+    ``kernel_shadow_tests``), where a bound is kept when the ray meets it
+    and enters it no farther than the best t so far (nearest) or closer
+    than max_t (shadow), the bound widened by ``CULL_REACH`` as K2 widens
+    it."""
+    halves = half_bounds(scene_tab)
     bounds = block_bounds(scene_tab)
+    groups = group_bounds(scene_tab)
+    rest = remainder_bound(scene_tab)
     n = scene_tab.shape[1]
     nb = bounds.shape[1]
+    ng = groups.shape[1]
     m = nb * SPHERE_BLOCK
-    work = dict(nearest_rays=0, shadow_rays=0, nearest_tests=0, shadow_tests=0, bound_tests=0)
+    half = SPHERE_BLOCK // 2
+    work = dict(nearest_rays=0, shadow_rays=0, nearest_tests=0, shadow_tests=0, bound_tests=0,
+                kernel_group_tests=0, kernel_bound_tests=0, kernel_nearest_tests=0,
+                kernel_shadow_tests=0)
     scene = Scene(center=scene_tab[0:3].T, radius=scene_tab[3], emission=scene_tab[4:7].T,
                   color=scene_tab[7:10].T, refl=scene_tab[10])
+    dev = scene_tab.device
+    blk = torch.arange(nb, device=dev)
+    blk_group = blk // GROUP_BLOCKS
+    blk_last = blk * SPHERE_BLOCK + (SPHERE_BLOCK - 1)
+    half_last = torch.arange(2 * nb, device=dev) * half + (half - 1)
+    # The highest block of each group: the sweep enters the group there.
+    grp_top = torch.clamp((torch.arange(ng, device=dev) + 1) * GROUP_BLOCKS, max=nb) - 1
+    sizes = torch.clamp(nb - torch.arange(ng, device=dev) * GROUP_BLOCKS, max=GROUP_BLOCKS)
+    idx = torch.arange(n, device=dev)
+    inf = float("inf")
 
     def hook(o, d, mask, max_t):
         o, d = o[mask], d[mask]
         rays = o.shape[0]
-        op = bounds[:3].T[None] - o[:, None, :]  # [R, nb, 3]
-        b = dot3(op, d[:, None, :])
-        det = b * b - dot3(op, op) + bounds[3] * bounds[3]
-        possible = (det >= 0.0) & ((b + sqrt_rn(torch.clamp(det, min=0.0))) > 0.0)  # [R, nb]
+        hmeets, hentry = bound_entry(halves, o, d)  # [R, 2 nb]
+        possible = bound_entry(bounds, o, d, reach=0.0)[0]  # [R, nb], the yardstick's
+        bmeets, entry = bound_entry(bounds, o, d)  # [R, nb]
+        gmeets, gentry = bound_entry(groups, o, d)  # [R, ng]
+        rmeets, rentry = bound_entry(rest, o, d)  # [R, 1]
+        t = sphere_intersect(scene, o, d)  # [R, n]
+        work["kernel_group_tests"] += rays * (ng + 1)
         if max_t is None:
             work["nearest_rays"] += rays
             work["bound_tests"] += rays * nb
             work["nearest_tests"] += rays * (n - m) + SPHERE_BLOCK * int(possible.sum())
+            # The best t before each half block: the remainder's, then the
+            # halves above it (a skipped one holds no better hit, so its
+            # minimum can join the running one).
+            tm = torch.where(t != 0.0, t, inf)
+            rem = tm[:, m:].amin(dim=1) if n > m else torch.full((rays,), inf, device=dev)
+            h_min = tm[:, :m].reshape(rays, 2 * nb, half).amin(dim=2)
+            above = torch.flip(torch.cummin(torch.flip(h_min, (1,)), dim=1).values, (1,))
+            above = torch.cat([above[:, 1:], torch.full((rays, 1), inf, device=dev)], 1)
+            best_h = torch.minimum(above, rem[:, None])  # [R, 2 nb]
+            best = best_h[:, 1::2]  # before each block: before its upper half
+            keep_g = gmeets & ~(gentry > best[:, grp_top])
+            keep_b = keep_g[:, blk_group] & bmeets & ~(entry > best)
+            keep_h = keep_b.repeat_interleave(2, dim=1) & hmeets & ~(hentry > best_h)
+            work["kernel_bound_tests"] += int((keep_g.sum(dim=0) * sizes).sum()) + 2 * int(
+                keep_b.sum())
+            work["kernel_nearest_tests"] += (n - m) * int(rmeets.sum()) + half * int(keep_h.sum())
             return
         work["shadow_rays"] += rays
-        t = sphere_intersect(scene, o, d)
-        occluder = (t != 0.0) & (t < max_t[mask][:, None])
-        tested = torch.cat(
-            [possible.repeat_interleave(SPHERE_BLOCK, dim=1),
-             torch.ones((rays, n - m), dtype=torch.bool, device=o.device)], dim=1)
-        found = occluder & tested
-        idx = torch.arange(n, device=o.device)
-        first = torch.where(found, idx, -1).amax(dim=1)  # -1: no occluder
+        mt = max_t[mask][:, None]
+        occluder = (t != 0.0) & (t < mt)
+        tested = torch.cat([possible.repeat_interleave(SPHERE_BLOCK, dim=1),
+                            torch.ones((rays, n - m), dtype=torch.bool, device=dev)], dim=1)
+        first = torch.where(occluder & tested, idx, -1).amax(dim=1)  # -1: no occluder
         work["shadow_tests"] += int((tested & (idx[None] >= first[:, None])).sum())
-        blk_last = torch.arange(nb, device=o.device) * SPHERE_BLOCK + (SPHERE_BLOCK - 1)
         work["bound_tests"] += int((blk_last[None] >= first[:, None]).sum())
+        keep_g = gmeets & (gentry < mt)
+        keep_b = keep_g[:, blk_group] & bmeets & (entry < mt)
+        keep_h = keep_b.repeat_interleave(2, dim=1) & hmeets & (hentry < mt)
+        keep_r = (rmeets & (rentry < mt)).expand(rays, n - m)
+        tested = torch.cat([keep_h.repeat_interleave(half, dim=1), keep_r], dim=1)
+        first = torch.where(occluder & tested, idx, -1).amax(dim=1)
+        # No occluder came before a bound that the sweep reaches.
+        reached = blk_last[None] >= first[:, None]  # [R, nb]
+        reached_h = half_last[None] >= first[:, None]  # [R, 2 nb]
+        work["kernel_group_tests"] -= int((~reached[:, grp_top]).sum())
+        work["kernel_bound_tests"] += int((keep_g[:, blk_group] & reached).sum()) + int(
+            (keep_b.repeat_interleave(2, dim=1) & reached_h).sum())
+        work["kernel_shadow_tests"] += int((tested & (idx[None] >= first[:, None])).sum())
 
     return hook, work
 
 
-def _check_cuda_inputs(scene_tab, cam_tab, s0, s1, acc, light_indices, extra_smem_floats=0):
+def _check_cuda_inputs(scene_tab, cam_tab, s0, s1, acc, light_indices, table_floats):
     dev = s0.device
     for name, t, dtype in (
         ("scene_tab", scene_tab, torch.float32),
@@ -254,7 +375,7 @@ def _check_cuda_inputs(scene_tab, cam_tab, s0, s1, acc, light_indices, extra_sme
         raise ValueError(f"state shapes {s0.shape}, {s1.shape}, {acc.shape} disagree")
     if scene_tab.shape[0] != 12 or cam_tab.numel() != 12:
         raise ValueError(f"scene_tab {tuple(scene_tab.shape)} / cam_tab {tuple(cam_tab.shape)}")
-    smem = 4 * (12 * n + extra_smem_floats + 12 + len(light_indices))
+    smem = 4 * (table_floats + 12 + len(light_indices))
     if smem > _MAX_SMEM_BYTES:
         raise ValueError(f"{n} spheres need {smem} B of shared memory (> {_MAX_SMEM_BYTES})")
     if any(not 0 <= i < n for i in light_indices):
@@ -300,7 +421,7 @@ def pt_multi_pass(
     if s0.device.type == "cpu":
         return pt_pass_reference(scene_tab, cam_tab, start_sample, s0, s1, acc, **kw)
     _check_launch(s0, rng)
-    _check_cuda_inputs(scene_tab, cam_tab, s0, s1, acc, light_indices)
+    _check_cuda_inputs(scene_tab, cam_tab, s0, s1, acc, light_indices, 12 * scene_tab.shape[1])
     lib = _kernel_lib()
     lights, outs = _lights_and_outputs(light_indices, s0, s1, acc)
     err = lib.pt_multi_pass_cuda(
@@ -338,9 +459,12 @@ def pt_blocked_pass(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2: ``num_samples`` passes in ONE launch, for any number of spheres,
     over the lanes of ``pix`` (int32, ``ray_layout(blocked=True)``). The
-    sweep runs in blocks of ``SPHERE_BLOCK``; ``cull`` skips a block whose
-    bound (``block_bounds``) the ray cannot hit, with the same result bits
-    as ``cull=False``. CPU tensors take ``pt_pass_reference``.
+    sweep runs in blocks of ``SPHERE_BLOCK``, grouped ``GROUP_BLOCKS`` at a
+    time; ``cull`` skips the remainder, a group, a block or a half block
+    whose bound (``remainder_bound``, ``group_bounds``, ``block_bounds``,
+    ``half_bounds``) the ray cannot hit, or enters beyond the best hit so
+    far (at or beyond the light, for a shadow ray), with the same result
+    bits as ``cull=False``. CPU tensors take ``pt_pass_reference``.
     ``pt_blocked_pass.launches`` counts K2 launches."""
     kw = dict(
         num_samples=num_samples, width=width, height=height,
@@ -350,16 +474,20 @@ def pt_blocked_pass(
     if s0.device.type == "cpu":
         return pt_pass_reference(scene_tab, cam_tab, start_sample, s0, s1, acc, pix, **kw)
     _check_launch(s0, rng)
-    bounds = block_bounds(scene_tab)
-    nb = bounds.shape[1]
-    _check_cuda_inputs(scene_tab, cam_tab, s0, s1, acc, light_indices, extra_smem_floats=4 * nb)
+    halves, bounds, groups, rest, lights = _k2_tables(scene_tab, tuple(light_indices))
+    nb, ng = bounds.shape[1], groups.shape[1]
+    # K2's shared memory: a (center, radius) record per sphere and per half
+    # block, block and group bound.
+    _check_cuda_inputs(scene_tab, cam_tab, s0, s1, acc, light_indices,
+                       4 * (scene_tab.shape[1] + 3 * nb + ng))
     if pix.device != s0.device or pix.dtype != torch.int32 or pix.shape != s0.shape:
         raise ValueError(f"pix: need int32 [{s0.shape[0]}] on {s0.device}")
     pix = pix.contiguous()
     lib = _kernel_lib()
-    lights, outs = _lights_and_outputs(light_indices, s0, s1, acc)
+    outs = (torch.empty_like(s0), torch.empty_like(s1), torch.empty_like(acc))
     err = lib.pt_blocked_pass_cuda(
-        scene_tab.data_ptr(), scene_tab.shape[1], bounds.data_ptr(), nb, int(cull),
+        scene_tab.data_ptr(), scene_tab.shape[1], halves.data_ptr(), bounds.data_ptr(), nb,
+        groups.data_ptr(), ng, rest.data_ptr(), int(cull),
         pix.data_ptr(), lights.data_ptr(), len(light_indices),
         cam_tab.data_ptr(), int(start_sample), int(num_samples),
         s0.data_ptr(), s1.data_ptr(), acc.data_ptr(), *(t.data_ptr() for t in outs),
@@ -372,6 +500,27 @@ def pt_blocked_pass(
 
 
 pt_blocked_pass.launches = 0
+
+
+_K2_TABLES = {}
+
+
+def _k2_tables(scene_tab: torch.Tensor, light_indices: Tuple[int, ...]):
+    """(half-block, block, group and remainder bounds, int32 light list) of a
+    scene table on its device, made once per table (held here, so its id
+    stays unique; remade if the table was written to): the bounds are ~30
+    small ops and the light list a copy to the device that would stall each
+    launch."""
+    key = id(scene_tab)
+    hit = _K2_TABLES.get(key)
+    if hit is None or hit[1] != scene_tab._version or hit[2] != light_indices:
+        if len(_K2_TABLES) >= 8:
+            _K2_TABLES.pop(next(iter(_K2_TABLES)))
+        lights = torch.tensor(light_indices, dtype=torch.int32, device=scene_tab.device)
+        hit = _K2_TABLES[key] = (scene_tab, scene_tab._version, light_indices,
+                                 half_bounds(scene_tab), block_bounds(scene_tab),
+                                 group_bounds(scene_tab), remainder_bound(scene_tab), lights)
+    return hit[3:]
 
 
 def _check_launch(s0, rng):
@@ -404,7 +553,7 @@ def _kernel_lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         tail = [p, p, p, p, p, p, i, i, i, f, f, i, i, i, p]
         lib.pt_multi_pass_cuda.argtypes = [p, i, p, i, p, i, i] + tail
-        lib.pt_blocked_pass_cuda.argtypes = [p, i, p, i, i, p, p, i, p, i, i] + tail
+        lib.pt_blocked_pass_cuda.argtypes = [p, i, p, p, i, p, i, p, i, p, p, i, p, i, i] + tail
         lib.pt_multi_pass_cuda.restype = lib.pt_blocked_pass_cuda.restype = ctypes.c_int
     return lib
 

@@ -6,7 +6,9 @@ Two entries, as in the JAX package:
 ``whitted_trace_cuda`` traces explicit ray tiles [6, Rp/128, 128] into
 acc [3, Rp/128, 128] (twin of ``whitted_trace_pallas_padded``), and
 ``whitted_frame_cuda`` makes the camera rays in the kernel and returns the
-finished [H, W, 3] frame in 0..255 (twin of ``whitted_frame_pallas``).
+finished [H, W, 3] frame in 0..255 (twin of ``whitted_frame_pallas``),
+one thread per subsample ray, each block summing the subsamples of its
+``pixels_per_block`` pixels in the order of ``reduce_subsamples``.
 Tensors on the CPU take the plain version, ``models/whitted.py``
 (``whitted_trace`` and ``render_whitted_scene``), which is also what the
 tests and ``chip_smoke.py`` hold the kernel against. Each wrapper counts its
@@ -40,9 +42,25 @@ LANES = 128
 # Rays of the explicit entry are padded to whole 8 x 128 tiles, as the JAX
 # package pads them.
 TILE = 8 * LANES
-# Deepest tree the kernel's per-thread stack holds (kMaxDepth).
+# Deepest tree the kernel's per-thread stack holds.
 MAX_TRACE_DEPTH = 8
+# Threads per block of both entries (kThreads).
+THREADS = 256
 _MAX_SMEM_BYTES = 48 * 1024
+
+
+def pixels_per_block(supersample: int) -> int:
+    """Pixels whose ss^2 subsample rays one block of the frame entry traces:
+    floor(THREADS / ss^2), at least 1."""
+    return max(1, THREADS // (supersample * supersample))
+
+
+def smem_bytes(n: int, color_floats: int) -> int:
+    """Dynamic shared memory of one block (the kernel's Layout): five
+    16-byte records, 1 / radius, a kind word and an occluder slot per
+    primitive, the list lengths, the camera row and the block's ray
+    colors."""
+    return 92 * n + 8 + 48 + 4 * color_floats
 
 
 def pack_whitted_scene(scene: WhittedScene) -> torch.Tensor:
@@ -67,17 +85,32 @@ def pack_whitted_scene(scene: WhittedScene) -> torch.Tensor:
     ).contiguous()
 
 
-def _scene_args(scene: WhittedScene, trace_depth: int, hit_bias: float, extra_floats: int):
+_PACKED = {}
+
+
+def _packed(scene: WhittedScene):
+    """(table, light flags, default camera row) on the scene's device, made
+    once per scene: the copies to the device would otherwise stall each
+    launch."""
+    hit = _PACKED.get(id(scene))
+    if hit is None or hit[0] is not scene:
+        if len(_PACKED) >= 8:
+            _PACKED.pop(next(iter(_PACKED)))
+        light = torch.tensor(scene.is_light, dtype=torch.int32, device=scene.device)
+        cam = torch.from_numpy(whitted_camera_row()).to(scene.device)
+        hit = _PACKED[id(scene)] = (scene, pack_whitted_scene(scene), light, cam)
+    return hit[1:]
+
+
+def _scene_args(scene: WhittedScene, trace_depth: int, hit_bias: float, color_floats: int):
     if not 0 <= trace_depth <= MAX_TRACE_DEPTH:
         raise ValueError(f"trace_depth {trace_depth} outside 0..{MAX_TRACE_DEPTH}")
     n = scene.num_prims
-    smem = 4 * (19 * n + extra_floats)
+    smem = smem_bytes(n, color_floats)
     if smem > _MAX_SMEM_BYTES:
         raise ValueError(f"{n} primitives need {smem} B of shared memory (> {_MAX_SMEM_BYTES})")
-    table = pack_whitted_scene(scene)
-    light = torch.tensor(scene.is_light, dtype=torch.int32, device=scene.device)
-    return table, light, (table.data_ptr(), light.data_ptr(), n,
-                          float(np.float32(hit_bias)), int(trace_depth))
+    table, light, _ = _packed(scene)
+    return (table.data_ptr(), light.data_ptr(), n, float(np.float32(hit_bias)), int(trace_depth))
 
 
 def whitted_trace_cuda(
@@ -102,7 +135,7 @@ def whitted_trace_cuda(
     if rays.device.type != "cuda":
         raise ValueError(f"unsupported device {rays.device}")
     rays = rays.contiguous()
-    table, light, args = _scene_args(scene, trace_depth, hit_bias, 0)
+    args = _scene_args(scene, trace_depth, hit_bias, 0)
     acc = torch.empty((3, rays.shape[1], LANES), dtype=torch.float32, device=rays.device)
     lib = _kernel_lib()
     err = lib.whitted_trace_cuda(*args, rays.data_ptr(), acc.data_ptr(), rp,
@@ -133,16 +166,16 @@ def whitted_frame_cuda(
     ``render_whitted_scene``."""
     dev = scene.device
     if cam_row is None:
-        cam_row = torch.from_numpy(whitted_camera_row())
+        cam_row = _packed(scene)[2]
     cam_row = cam_row.to(device=dev, dtype=torch.float32).reshape(12).contiguous()
     if dev.type == "cpu":
         return render_whitted_scene(scene, width, height, supersample, trace_depth, hit_bias,
                                     cam_row=cam_row)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    table, light, args = _scene_args(scene, trace_depth, hit_bias, 12)
-    frame = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     ss2 = supersample * supersample
+    args = _scene_args(scene, trace_depth, hit_bias, 3 * pixels_per_block(supersample) * ss2)
+    frame = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     lib = _kernel_lib()
     err = lib.whitted_frame_cuda(
         *args, cam_row.data_ptr(), width, height, supersample,

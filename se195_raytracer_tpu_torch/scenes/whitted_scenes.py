@@ -64,6 +64,13 @@ class WhittedScene:
         return 1.0 / torch.where(self.radius != 0.0, self.radius, 1.0)
 
     def to(self, device) -> "WhittedScene":
+        """The scene on ``device``: itself when it is there already, so that
+        per-scene caches (K3's packed tables) keep hitting."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if device == self.device:
+            return self
         return dataclasses.replace(
             self, **{f: getattr(self, f).to(device) for f in _TENSOR_FIELDS}
         )
@@ -123,7 +130,7 @@ def _adders(b: WhittedSceneBuilder):
 
 
 def room_scene(device=None) -> WhittedScene:
-    """Reference CHOOSE_SCENE 0 (scene.c:55-96): 17 primitives — a 6-plane
+    """Reference CHOOSE_SCENE 0 (scene.c:55-96): 16 primitives — a 6-plane
     room, 7 spheres (refractive/reflective mix) and 3 small sphere lights.
     Material arguments are (color..., refl, refr, refr_index, diff, spec),
     create_material's order."""

@@ -310,3 +310,136 @@ def test_k2_matches_plain_on_cuda(rng):
     which = 1 if rng == "counter" else 0
     assert_contract(p[2].cpu().numpy(), k[2].cpu().numpy(),
                     p[which].cpu().numpy(), k[which].cpu().numpy())
+
+
+# ------------------------------------------------- K2's bounds and cull ----
+def _bound_sets(scene_tab):
+    """{level: (bounds [4, k], sphere index sets [k, s])} of K2's sweep."""
+    n = scene_tab.shape[1]
+    nb = n // ptk.SPHERE_BLOCK
+    m = nb * ptk.SPHERE_BLOCK
+    half = ptk.SPHERE_BLOCK // 2
+    size = ptk.GROUP_BLOCKS * ptk.SPHERE_BLOCK
+    ng = (nb + ptk.GROUP_BLOCKS - 1) // ptk.GROUP_BLOCKS
+    groups = torch.clamp(torch.arange(ng)[:, None] * size + torch.arange(size)[None], max=m - 1)
+    return {
+        "half": (ptk.half_bounds(scene_tab), torch.arange(m).reshape(2 * nb, half)),
+        "block": (ptk.block_bounds(scene_tab), torch.arange(m).reshape(nb, ptk.SPHERE_BLOCK)),
+        "group": (ptk.group_bounds(scene_tab), groups),
+        "remainder": (ptk.remainder_bound(scene_tab), torch.arange(m, n)[None]),
+    }
+
+
+@pytest.mark.parametrize("level", ["half", "block", "group", "remainder"])
+def test_k2_bounds_hold_their_spheres(level):
+    """Every bound of K2's sweep holds every sphere of its set with the
+    inflation (x1.001 + 0.01) to spare, and is made the same way twice."""
+    from se195_raytracer_tpu_torch.scenes.generator import complex_scene
+
+    for depth in (3.0, 4.0):  # 158 and 783 spheres
+        tab = ptk.pack_scene(complex_scene(max_depth=depth).to_scene("cpu"))
+        bounds, idx = _bound_sets(tab)[level]
+        again, _ = _bound_sets(tab)[level]
+        np.testing.assert_array_equal(bounds.numpy(), again.numpy())
+        c = tab[0:3].T[idx]  # [k, s, 3]
+        reach = torch.linalg.norm(c - bounds[:3].T[:, None, :], dim=-1) + tab[3][idx]
+        radius = bounds[3][:, None]
+        assert bool((reach <= (radius - 0.01) / 1.001 * (1 + 1e-6)).all()), level
+        assert bool((reach + 0.01 <= radius).all()), level
+
+
+@pytest.mark.parametrize("placement", ["as_built", "far"])
+@pytest.mark.parametrize("level", ["half", "block", "group", "remainder"])
+def test_k2_distance_cull_is_exact(level, placement):
+    """On every sweep of a small complex render, K2's predicate (the ray
+    misses the bound, or enters it beyond the running best t of the
+    descending sweep, or at max_t or beyond for a shadow ray) never skips a
+    set that holds a sphere the sweep would take: a hit closer than the
+    best t before the set, or an occluder closer than max_t. ``far`` scales
+    the scene and the camera's position 10x and moves them 1000 along each
+    axis: the rounding of a sphere's t and of a bound's entry grows with the
+    distance, which the widening of the bound (CULL_REACH) must cover. Its
+    seed sends shadow rays from ~1.4e5 out on the ground sphere, where the
+    bound without the widening enters ~50 beyond a sphere's computed hit
+    and skips an occluder."""
+    from se195_raytracer_tpu_torch.core.types import Scene
+    from se195_raytracer_tpu_torch.ops.intersect import sphere_intersect
+
+    spec = get_scene("complex")
+    cfg = RenderConfig(width=24, height=16, spp=1, seed=K2_SEED if placement == "as_built" else 7)
+    scene = spec.to_scene("cpu")
+    tab = ptk.pack_scene(scene)
+    cam = ptk.pack_camera(ptk.update_camera(spec.to_camera("cpu"), cfg.width, cfg.height))
+    if placement == "far":
+        tab, cam = tab.clone(), cam.reshape(12).clone()
+        tab[0:4] *= 10.0
+        tab[0:3] += 1000.0
+        cam[0:3] = cam[0:3] * 10.0 + 1000.0
+    bounds, idx = _bound_sets(tab)[level]
+    plain = Scene(center=tab[0:3].T, radius=tab[3], emission=tab[4:7].T, color=tab[7:10].T,
+                  refl=tab[10])
+    checked = {"nearest": 0, "shadow": 0, "skipped": 0, "slack": float("inf")}
+
+    def hook(o, d, mask, max_t):
+        o, d = o[mask], d[mask]
+        meets, entry = ptk.bound_entry(bounds, o, d)
+        t = sphere_intersect(plain, o, d)
+        tm = torch.where(t != 0.0, t, float("inf"))
+        set_min = tm[:, idx].amin(dim=2)  # [R, k]: the set's nearest hit
+        # Where the ray hits a sphere of the set, it enters the widened,
+        # inflated bound at least half the inflation's 0.01 before: rounding
+        # is far smaller.
+        hit = torch.isfinite(set_min)
+        assert bool((meets | ~hit).all()), level
+        slack = torch.where(hit, set_min - entry, float("inf"))
+        checked["slack"] = min(checked["slack"], float(slack.min()))
+        assert checked["slack"] >= 0.005, (level, placement, checked["slack"])
+        if max_t is None:
+            # The sweep runs in descending sphere order: the best t before a
+            # set is the minimum over the spheres above its highest one.
+            top = idx.amax(dim=1)
+            above = torch.stack([tm[:, j + 1:].amin(dim=1) if j + 1 < tm.shape[1] else
+                                 torch.full((tm.shape[0],), float("inf")) for j in top.tolist()], 1)
+            skipped = ~meets | (entry > above)
+            assert not bool((skipped & (set_min < above)).any()), level
+            checked["nearest"] += o.shape[0]
+        else:
+            mt = max_t[mask][:, None]
+            skipped = ~meets | (entry >= mt)
+            assert not bool((skipped & (set_min < mt)).any()), level
+            checked["shadow"] += o.shape[0]
+        checked["skipped"] += int(skipped.sum())
+
+    s0, s1, acc = ptk.init_pt_state(cfg, "cpu", blocked=True)
+    pix = torch.from_numpy(ptk.ray_layout(cfg.width, cfg.height, True)[1])
+    ptk.pt_pass_reference(tab, cam, 0, s0, s1, acc, pix, num_samples=1, width=cfg.width,
+                          height=cfg.height, max_depth=cfg.max_depth, direct_only=False,
+                          light_indices=scene.light_indices, on_sweep=hook)
+    assert checked["nearest"] > 0 and checked["shadow"] > 0 and checked["skipped"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA device")
+@pytest.mark.parametrize("integrator,max_depth", [("pt", 1), ("pt", 7), ("dl", 7)])
+def test_k2_cull_bitwise_on_cuda(integrator, max_depth):
+    """K2's groups, half blocks, remainder bound and distance cull, and its
+    one loop over all passes' bounces, give the bits of the full sweep, and
+    K1's contract against the plain version, at 64x32 and 3 spp."""
+    from se195_raytracer_tpu_torch.scenes.generator import complex_scene
+
+    spec = complex_scene()
+    scene, camera = spec.to_scene("cuda"), spec.to_camera("cuda")
+    cfg = RenderConfig(width=64, height=32, spp=1, seed=6, integrator=integrator)
+    scene_tab = ptk.pack_scene(scene)
+    cam_tab = ptk.pack_camera(ptk.update_camera(camera, cfg.width, cfg.height))
+    s0, s1, acc = ptk.init_pt_state(cfg, "cuda", blocked=True)
+    pix = torch.from_numpy(ptk.ray_layout(cfg.width, cfg.height, True)[1]).cuda()
+    kw = dict(num_samples=3, width=cfg.width, height=cfg.height, max_depth=max_depth,
+              direct_only=integrator == "dl", light_indices=scene.light_indices)
+    on = ptk.pt_blocked_pass(scene_tab, cam_tab, 0, s0, s1, acc, pix, **kw)
+    off = ptk.pt_blocked_pass(scene_tab, cam_tab, 0, s0, s1, acc, pix, cull=False, **kw)
+    torch.cuda.synchronize()
+    assert all(bool(torch.equal(a, b)) for a, b in zip(on, off))
+    p = ptk.pt_pass_reference(scene_tab, cam_tab, 0, s0, s1, acc, pix, **kw)
+    assert_contract(p[2].cpu().numpy(), on[2].cpu().numpy(), p[0].cpu().numpy(),
+                    on[0].cpu().numpy())

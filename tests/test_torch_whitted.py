@@ -198,3 +198,24 @@ def test_k3_matches_plain_on_cuda(name, hit_bias):
         before[0] + 1, before[1] + 1)
     for img in (frame, wk.tiles_to_frame(acc, 160, 120, 3)):
         np.testing.assert_allclose(img.cpu().numpy(), plain.cpu().numpy(), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA device")
+@pytest.mark.parametrize("supersample", [1, 2, 3, 4])
+def test_k3_bitwise_on_cuda(supersample):
+    """K3 (one thread per subsample ray, the repacked scene, the 12-word
+    stack) bitwise equal to the plain tracer on the card, at a size whose
+    last block is partial, through both entries, grid and hit_bias 0.005,
+    trace_depth 0 and 5."""
+    ps = WHITTED_SCENES["grid"]("cuda")
+    for depth in (0, 5):
+        kw = dict(width=37, height=23, supersample=supersample, trace_depth=depth,
+                  hit_bias=0.005)
+        plain = W.render_whitted_scene(ps, **kw)
+        frame = wk.whitted_frame_cuda(ps, **kw)
+        o, d = W.whitted_camera_rays_device(37, 23, supersample, device="cuda")
+        acc = wk.whitted_trace_cuda(ps, wk.rays_to_tiles(o, d), trace_depth=depth, hit_bias=0.005)
+        torch.cuda.synchronize()
+        assert torch.equal(frame, plain)
+        assert torch.equal(wk.tiles_to_frame(acc, 37, 23, supersample), plain)
