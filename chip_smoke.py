@@ -11,7 +11,8 @@
 3. the Cornell main path: ``cli.main(["render", ...])`` and
    ``driver.render.render`` at 512x512, 8 spp, with every launch counter set
    to 0 just before and read just after; the image against the plain mean;
-4. K1 timing: kernel, end to end with readback, plain, breakdown, bound;
+4. K1 timing: kernel (PT, and DL), end to end with readback, plain,
+   breakdown, bound;
 5. K2 (csrc/pt_kernel.cu, the blocked, culled sweep) against the plain
    version on ``complex`` (783 spheres) at 512x512, 1 spp, PT/mwc and
    PT/counter; cull on against cull off, bitwise, at 512x512, 1 spp;
@@ -31,14 +32,16 @@
    procedural room5 one and a 2 x 200 x 200 u8/256 one written as TGA files
    and read through io/tga.py; its timing;
 10. K4 (csrc/whitted5_kernel.cu) against the plain tracer, room5 800x600,
-    spp 1, seed 3, depth 4, and the deterministic scene;
+    spp 1, seed 3, depth 4, and the deterministic scene; K4's exact box
+    tests per sweep, counted by the torch mirror of its sweeps;
 11. the whitted5 main paths at room5 800x600 (CLI brute and adaptive,
     render_whitted5 at spp 8, render_whitted5_4ray, the adaptive pipeline
     under the CUDA sync check), counters set to 0 before each, each held
     against its plain version;
 12. whitted5 timings at 320x240 and 800x600 for spp 1, spp 8, 4-ray and
     adaptive, with bounds from the plain tracer's live-work count, the
-    adaptive against 4-ray ratio and PSNRs;
+    adaptive against 4-ray ratio and PSNRs; the K4 split (trace_depth 1, 2,
+    4 x two shadow-sample tables at 800x600 spp 1);
 13. prints one JSON line per kernel (``{"kernels": [...]}``, K1-K5) and,
     last, ``{"ok": true, "device": {...}}``.
 
@@ -121,6 +124,9 @@ K4_DET_TOL = 1e-5
 # 512x512 x 8 spp, cull on and off.
 K3_SPLIT = ((1, 1), (2, 1), (5, 1), (1, 3), (2, 3), (5, 3))
 K2_SPLIT = ((1, "pt"), (7, "pt"), (7, "dl"))
+# K4 at room5 800x600 spp 1: (trace_depth, area_samples_by_level).
+K4_SPLIT = tuple((depth, samples) for depth in (1, 2, 4)
+                 for samples in ((4, 2, 1, 1), (1, 1, 1, 1)))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -394,6 +400,52 @@ def k2_split(width, height, spp, works, pass_fn=None):
     return rows
 
 
+def k4_split(scene, width, height, works):
+    """K4's ms at room5 ``width`` x ``height``, spp 1, for each
+    (trace_depth, area_samples_by_level) of K4_SPLIT, beside the plain
+    tracer's live nodes and the shadow sweeps K4 traces (those that can add
+    light; ``works``: {(depth, samples): work}, filled where missing). The
+    two sample tables differ only in the shadow sweeps of level 1, so at
+    each depth the difference of the two rows gives the ns per traced
+    shadow sweep, and the rest of the row's time per live node the ns per
+    node (its nearest sweep, its shading, the pass's slot sums). Returns
+    the rows."""
+    from se195_raytracer_tpu_torch.kernels import whitted5_kernel as w5k
+    from se195_raytracer_tpu_torch.models import whitted5 as P
+
+    o, d = P._cached_rays5(width, height, (0.5, 0.5), "cuda")
+    state = P._cached_state5(width * height, W5_SEED, "cuda")
+    rows = {}
+    for depth, samples in K4_SPLIT:
+        work = works.get((depth, samples))
+        if work is None:
+            work = works[(depth, samples)] = {}
+            P.trace_passes(scene, o, d, state, trace_depth=depth, area_samples_by_level=samples,
+                           work=work)
+        ms, _ = launch_ms(lambda: w5k.whitted5_trace_cuda(
+            scene, o, d, state, trace_depth=depth, area_samples_by_level=samples))
+        rows[(depth, samples)] = dict(ms=ms, nodes=work["nodes"],
+                                      shadow_sweeps=work["shadow_sweeps_used"],
+                                      shadow_sweeps_drawn=work["shadow_sweeps"])
+    print(f"  K4 split (room5 {width}x{height}, spp 1): " + "; ".join(
+        f"depth {d} samples {''.join(map(str, s))} {v['ms']:.4f} ms, {v['nodes']} nodes, "
+        f"{v['shadow_sweeps']} shadow sweeps traced of {v['shadow_sweeps_drawn']}"
+        for (d, s), v in rows.items()))
+    for depth in sorted({d for d, _ in K4_SPLIT}):
+        hi, lo = (rows[(depth, s)] for s in ((4, 2, 1, 1), (1, 1, 1, 1)))
+        per_sweep = (hi["ms"] - lo["ms"]) / (hi["shadow_sweeps"] - lo["shadow_sweeps"])
+        per_node = (hi["ms"] - per_sweep * hi["shadow_sweeps"]) / hi["nodes"]
+        per_drawn = (hi["ms"] - lo["ms"]) / (hi["shadow_sweeps_drawn"] - lo["shadow_sweeps_drawn"])
+        hi.update(ns_per_shadow_sweep=per_sweep * 1e6, ns_per_node=per_node * 1e6,
+                  ns_per_drawn_shadow_sweep=per_drawn * 1e6,
+                  shadow_share=per_sweep * hi["shadow_sweeps"] / hi["ms"])
+        print(f"  K4 split depth {depth}: {per_sweep * 1e6:.5f} ns per traced shadow sweep "
+              f"({per_drawn * 1e6:.5f} per drawn one, for a kernel that traces every one), "
+              f"{per_node * 1e6:.5f} ns per live node besides; shadow sweeps "
+              f"{hi['shadow_share']:.1%} of the default row")
+    return {f"depth{d} samples{''.join(map(str, s))}": v for (d, s), v in rows.items()}
+
+
 def median_ms(fn, reps=REPS):
     """Median over ``reps`` of one call timed with CUDA events, after one
     warm-up call."""
@@ -487,6 +539,9 @@ def k1_section():
     plain_ms, plain_all = median_ms(
         lambda: pt_pass_reference(scene_tab, cam_tab, 0, s0, s1, acc, num_samples=SPP, **kw),
         reps=5)
+    dl_tab, dl_cam, dl_state, _, dl_kw = pass_inputs(SCENE, WIDTH, HEIGHT, "dl", "mwc", "cuda")
+    dl_ms, dl_all = median_ms(
+        lambda: pt_multi_pass(dl_tab, dl_cam, 0, *dl_state, num_samples=SPP, **dl_kw))
     torch.cuda.reset_peak_memory_stats()
     e2e_ms, e2e = host_ms(lambda: render(scene, camera, cfg)[0].cpu())
     peak_mem = torch.cuda.max_memory_allocated()
@@ -500,6 +555,8 @@ def k1_section():
         scene.num_spheres, len(scene.light_indices))
     print(f"  K1 kernel: {kernel_ms:.4f} ms per {SPP}-spp call (reps {['%.4f' % t for t in kernel_all]}), "
           f"{rays / kernel_ms * 1e3:.4g} rays/s")
+    print(f"  K1 kernel with DL: {dl_ms:.4f} ms per {SPP}-spp call "
+          f"(reps {['%.4f' % t for t in dl_all]})")
     print(f"  end to end incl. readback: {e2e_ms:.4f} ms (reps {['%.3f' % t for t in e2e]}), "
           f"{rays / e2e_ms * 1e3:.4g} rays/s")
     print(f"  breakdown (host clock, medians): seed init {seed_ms:.4f} ms, scene/camera pack "
@@ -519,6 +576,7 @@ def k1_section():
         "mismatch_frac": max(e[1] for e in errs),
         "state_mismatch_frac": max(e[2] for e in errs),
         "ms": kernel_ms,
+        "dl_ms": dl_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -853,15 +911,51 @@ def k4_contract(a, b, tag, idx_a=None, idx_b=None):
     return d.max().item(), bad
 
 
-def w5_work_ops(scene, work):
-    """FP32 ops of the live whitted5 work the plain tracer counted."""
+def k4_box_tests(scene, o, d, state):
+    """K4's exact box tests per sweep, counted by the torch mirror of its
+    sweeps (``nearest_keeps``, ``shadow_visible``) over every sweep of the
+    plain tracer's spp-1 trace, beside the plain work the bound counts (a
+    sweep tests every box) and the shadow sweeps K4 traces (those whose
+    diffuse or specular term can use the shade)."""
+    from se195_raytracer_tpu_torch.kernels import whitted5_kernel as w5k
+    from se195_raytracer_tpu_torch.models import whitted5 as P
+
+    near, shadow, work = {}, {}, {}
+
+    def hook(o_, d_, mask, max_t, target):
+        o_, d_ = o_[mask], d_[mask]
+        if max_t is None:
+            w5k.nearest_keeps(scene, o_, d_, counts=near)
+        else:
+            w5k.shadow_visible(scene, o_, d_, max_t[mask], target, counts=shadow)
+
+    P.trace_passes(scene, o, d, state, work=work, on_sweep=hook)
+    n_box = sum(1 for t in scene.ptype if t == 2)
+    out = dict(nearest_per_sweep=near["box_tests"] / near["sweeps"],
+               shadow_per_sweep=shadow["box_tests"] / shadow["sweeps"], boxes=n_box,
+               shadow_sweeps=work["shadow_sweeps"], shadow_sweeps_traced=work["shadow_sweeps_used"])
+    print(f"  K4's exact box tests (torch mirror of its sweeps, spp 1): "
+          f"{out['nearest_per_sweep']:.4f} per nearest sweep, {out['shadow_per_sweep']:.4f} per "
+          f"shadow sweep (the light's own included), against {n_box} per sweep in the plain work "
+          f"that the bound counts; K4 traces, and the bound counts, {out['shadow_sweeps_traced']} "
+          f"of the {out['shadow_sweeps']} shadow sweeps drawn (the others cannot add light)")
+    return out
+
+
+def w5_work_ops(scene, work, shadow="shadow_sweeps_used"):
+    """FP32 ops of the live whitted5 work the plain tracer counted: each
+    live node's sweep and shading, and the shadow sweeps of ``work[shadow]``,
+    by default those whose shade the node's diffuse or specular term can use
+    (the others change no output, and K4 does not trace them); ``shadow=
+    "shadow_sweeps"`` counts every shadow sweep drawn, the earlier yardstick.
+    Every sweep tests every primitive, as the plain tracer does."""
     n_sph = sum(1 for t in scene.ptype if t == 0)
     n_pla = sum(1 for t in scene.ptype if t == 1)
     n_box = scene.num_prims - n_sph - n_pla
     sweep = W5_OPS_SPHERE * n_sph + W5_OPS_PLANE * n_pla + W5_OPS_BOX * n_box
     lights = sum(1 for x in scene.is_light if x)
     return (work["nodes"] * (sweep + W5_OPS_NODE) + work["lit"] * lights * W5_OPS_LIGHT
-            + work["shadow_sweeps"] * (sweep + W5_OPS_SAMPLE) + work["texels"] * W5_OPS_TEXEL
+            + work[shadow] * (sweep + W5_OPS_SAMPLE) + work["texels"] * W5_OPS_TEXEL
             + work["glossy"] * W5_OPS_GLOSSY)
 
 
@@ -897,6 +991,7 @@ def k4_section(tmp):
     derr = (a - b).abs().max().item()
     print(f"  deterministic scene {w}x{h}: max_abs_err {derr:.3g}")
     check(bool(torch.allclose(a, b, rtol=K4_DET_TOL, atol=K4_DET_TOL)), "K4 deterministic scene")
+    box_tests = k4_box_tests(scene, o, d, state)
 
     print(f"[11] whitted5 main paths: room5 {w}x{h}")
     main_launches = {}
@@ -957,7 +1052,8 @@ def k4_section(tmp):
     for cw, ch in W5_SIZES:
         for cfg in ("spp1", f"spp{W5_SPP}", "4ray", "adaptive"):
             cells[f"{cw}x{ch} {cfg}"] = w5_cell(scene, cw, ch, cfg)
-    return errs, main_launches, cells, frac
+    diag = {"box_tests": box_tests, "split": k4_split(scene, w, h, {})}
+    return errs, main_launches, cells, frac, diag
 
 
 def launch_ms(fn, n=20, reps=5):
@@ -1060,6 +1156,7 @@ def w5_cell(scene, w, h, cfg):
     work = {}
     render(use_kernel=False, work=work)
     ops = w5_work_ops(scene, work)
+    ops_drawn = w5_work_ops(scene, work, "shadow_sweeps")
     if n_sets is None:  # adaptive: the primary pass and 3 passes over the bucket
         bucket = P.adaptive_bucket(w, h)
         nbytes = r * (24 + 8 + 12 + 4) + 3 * bucket * 24 + bucket * (8 + 12)
@@ -1075,13 +1172,18 @@ def w5_cell(scene, w, h, cfg):
           f"busy {busy:.4f} ms (K4 {k4_dev:.4f}), idle share {idle:.2%}; plain "
           f"{plain_ms:.2f} ms; K4 launches {launches}; peak memory {peak} B; work {work}")
     bound_ms, bound_by = bound(ops, nbytes, kernel_ms, f"{w}x{h} {cfg}")
+    drawn_ms = max(ops_drawn / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+    print(f"  {w}x{h} {cfg} against every drawn shadow sweep ({work['shadow_sweeps']}, of which "
+          f"{work['shadow_sweeps_used']} can add light; the earlier yardstick): {ops_drawn:.6g} "
+          f"FP32 ops, bound {drawn_ms:.5f} ms, share {drawn_ms / kernel_ms:.2%}")
     return {"ms": kernel_ms, "e2e_ms": e2e_ms, "plain_ms": plain_ms, "launches": launches,
             "peak_mem_bytes": peak, "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
+            "bound_ms_every_shadow_sweep": drawn_ms,
             "bytes": nbytes, "idle_share": idle, "busy_ms": busy, "work": work,
             "img": img}
 
 
-def w5_summary(cells, k5, errs, main_launches, frac):
+def w5_summary(cells, k5, errs, main_launches, frac, diag):
     """The adaptive A/B lines and the K4 and K5 entries of the kernels line."""
     for size in W5_SIZES:
         key = f"{size[0]}x{size[1]}"
@@ -1110,6 +1212,7 @@ def w5_summary(cells, k5, errs, main_launches, frac):
         "e2e_ms": big["e2e_ms"],
         "edge_fraction": frac,
         "cells": cells,
+        **diag,
     }
     k5e = {
         "name": "K5 texel fetch (device function inside K4; texel_fetch_cuda alone)",
@@ -1154,8 +1257,8 @@ def main() -> int:
     t = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         k5 = k5_section(tmp)
-        errs, main_launches, cells, frac = k4_section(tmp)
-    kernels.extend(w5_summary(cells, k5, errs, main_launches, frac))
+        errs, main_launches, cells, frac, diag = k4_section(tmp)
+    kernels.extend(w5_summary(cells, k5, errs, main_launches, frac, diag))
     print(f"  (K4/K5 phases {time.perf_counter() - t:.1f} s)")
 
     print(card)

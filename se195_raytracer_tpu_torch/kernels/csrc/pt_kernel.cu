@@ -20,9 +20,11 @@
 // the blocks its 32 lanes keep, and a warp's pass lasts as long as its
 // longest path.
 // What the design does about it:
-//   * the [12, N] scene table, the camera row and the light list sit in
-//     shared memory (K1), loaded once per block; every thread reads the
-//     same sphere at the same time, so the reads are broadcasts;
+//   * a float4 (center, radius) record per sphere, the [12, N] scene table
+//     (K1; K2 reads it from device memory), the camera row and the light
+//     list sit in shared memory, loaded once per block; every thread reads
+//     the same sphere at the same time, so a sphere test is one 16-byte
+//     broadcast; K1's sweeps unroll by 4;
 //   * the whole spp loop runs inside the kernel with the ray, throughput,
 //     RNG state and accumulator in registers: no device-memory traffic per
 //     bounce or per pass;
@@ -68,7 +70,12 @@
 
 namespace {
 
+// K1's threads per block and __launch_bounds__ minimum of resident blocks
+// per SM, chosen by measuring (kernel_ab.py on edited copies): 64 registers, 8
+// blocks per SM, the 2048 blocks of 512x512 lanes in 1.94 waves. K2 states
+// a minimum of 1, under which ptxas gives it 72-76 registers and no spill.
 constexpr int kThreadsK1 = 128;
+constexpr int kMinBlocksK1 = 8;
 constexpr int kThreadsK2 = 256;
 constexpr int kRows = 12;  // cx cy cz rad ex ey ez cr cg cb refl emissive
 constexpr int kBlock = 16;  // SPHERE_BLOCK: spheres per culled block
@@ -104,14 +111,15 @@ __device__ __forceinline__ float draw(uint32_t& s0, uint32_t& s1) {
   }
 }
 
-// SphereIntersect (geomfunc.h:32-59): distance, or 0 on a miss.
-__device__ __forceinline__ float sphere_t(const float* sc, int n, int j,
-                                          float ox, float oy, float oz,
-                                          float dx, float dy, float dz) {
-  const float opx = sc[0 * n + j] - ox;
-  const float opy = sc[1 * n + j] - oy;
-  const float opz = sc[2 * n + j] - oz;
-  const float r = sc[3 * n + j];
+// SphereIntersect (geomfunc.h:32-59) on a (cx, cy, cz, rad) record:
+// distance, or 0 on a miss.
+__device__ __forceinline__ float sphere_t4(float4 s, float ox, float oy,
+                                           float oz, float dx, float dy,
+                                           float dz) {
+  const float opx = s.x - ox;
+  const float opy = s.y - oy;
+  const float opz = s.z - oz;
+  const float r = s.w;
   const float b = opx * dx + opy * dy + opz * dz;
   const float det = b * b - (opx * opx + opy * opy + opz * opz) + r * r;
   if (!(det >= 0.0f)) return 0.0f;
@@ -122,15 +130,17 @@ __device__ __forceinline__ float sphere_t(const float* sc, int n, int j,
 }
 
 // The nearest hit (geomfunc.h:82-89): spheres N-1 .. 0, strict <, so the
-// larger index wins a tie (K1).
-__device__ __forceinline__ void nearest_all(const float* sc, int n, float ox,
-                                            float oy, float oz, float dx,
-                                            float dy, float dz, float& tb,
-                                            int& id) {
+// larger index wins a tie (K1); one 16-byte shared-memory broadcast per
+// sphere, unrolled by 4.
+__device__ __forceinline__ void nearest_all(const float4* geom, int n,
+                                            float ox, float oy, float oz,
+                                            float dx, float dy, float dz,
+                                            float& tb, int& id) {
   tb = kInf;
   id = 0;
+#pragma unroll 4
   for (int j = n - 1; j >= 0; --j) {
-    const float t = sphere_t(sc, n, j, ox, oy, oz, dx, dy, dz);
+    const float t = sphere_t4(geom[j], ox, oy, oz, dx, dy, dz);
     if (t != 0.0f && t < tb) {
       tb = t;
       id = j;
@@ -140,11 +150,13 @@ __device__ __forceinline__ void nearest_all(const float* sc, int n, float ox,
 
 // IntersectP (geomfunc.h:94-110): any sphere hit strictly closer than maxt
 // (K1).
-__device__ __forceinline__ bool any_hit_all(const float* sc, int n, float ox,
-                                            float oy, float oz, float dx,
-                                            float dy, float dz, float maxt) {
+__device__ __forceinline__ bool any_hit_all(const float4* geom, int n,
+                                            float ox, float oy, float oz,
+                                            float dx, float dy, float dz,
+                                            float maxt) {
+#pragma unroll 4
   for (int j = n - 1; j >= 0; --j) {
-    const float t = sphere_t(sc, n, j, ox, oy, oz, dx, dy, dz);
+    const float t = sphere_t4(geom[j], ox, oy, oz, dx, dy, dz);
     if (t != 0.0f && t < maxt) return true;
   }
   return false;
@@ -163,24 +175,6 @@ struct Blocked {
   int n, nb, ng;
   bool cull;
 };
-
-// SphereIntersect (geomfunc.h:32-59) on a record: the arithmetic of
-// sphere_t.
-__device__ __forceinline__ float sphere_t4(float4 s, float ox, float oy,
-                                           float oz, float dx, float dy,
-                                           float dz) {
-  const float opx = s.x - ox;
-  const float opy = s.y - oy;
-  const float opz = s.z - oz;
-  const float r = s.w;
-  const float b = opx * dx + opy * dy + opz * dz;
-  const float det = b * b - (opx * opx + opy * opy + opz * opz) + r * r;
-  if (!(det >= 0.0f)) return 0.0f;
-  const float sq = sqrtf(det);
-  const float t1 = b - sq;
-  const float t2 = b + sq;
-  return t1 > kEps ? t1 : (t2 > kEps ? t2 : 0.0f);
-}
 
 // The bound test: does the ray's line meet bounding sphere bb ahead of its
 // origin (block_possible, JAX pt_kernel.py:239-255)? If so, `entry` is the
@@ -309,28 +303,27 @@ __device__ __forceinline__ bool any_hit_blocked(const Blocked& B, float ox,
       });
 }
 
-// The nearest hit and the shadow test of K1 (sc, n) or K2 (B).
+// The nearest hit and the shadow test: K1 sweeps every record of B, K2
+// its blocks.
 template <bool BLOCKED>
-__device__ __forceinline__ void nearest(const float* sc, int n,
-                                        const Blocked& B, float ox, float oy,
+__device__ __forceinline__ void nearest(const Blocked& B, float ox, float oy,
                                         float oz, float dx, float dy,
                                         float dz, float& tb, int& id) {
   if constexpr (BLOCKED) {
     nearest_blocked(B, ox, oy, oz, dx, dy, dz, tb, id);
   } else {
-    nearest_all(sc, n, ox, oy, oz, dx, dy, dz, tb, id);
+    nearest_all(B.geom, B.n, ox, oy, oz, dx, dy, dz, tb, id);
   }
 }
 
 template <bool BLOCKED>
-__device__ __forceinline__ bool any_hit(const float* sc, int n,
-                                        const Blocked& B, float ox, float oy,
+__device__ __forceinline__ bool any_hit(const Blocked& B, float ox, float oy,
                                         float oz, float dx, float dy,
                                         float dz, float maxt) {
   if constexpr (BLOCKED) {
     return any_hit_blocked(B, ox, oy, oz, dx, dy, dz, maxt);
   } else {
-    return any_hit_all(sc, n, ox, oy, oz, dx, dy, dz, maxt);
+    return any_hit_all(B.geom, B.n, ox, oy, oz, dx, dy, dz, maxt);
   }
 }
 
@@ -382,7 +375,7 @@ __device__ __forceinline__ bool bounce(Path& path, uint32_t& s0, uint32_t& s1,
   bool& spec = path.spec;
   float tb;
   int id;
-  nearest<BLOCKED>(sc, n, B, ox, oy, oz, dx, dy, dz, tb, id);
+  nearest<BLOCKED>(B, ox, oy, oz, dx, dy, dz, tb, id);
   if (!(tb < kInf)) return false;  // miss: the path ends
 
   const float hx = ox + tb * dx;
@@ -441,8 +434,7 @@ __device__ __forceinline__ bool bounce(Path& path, uint32_t& s0, uint32_t& s1,
       const float wo = sdx * ux + sdy * uy + sdz * uz;
       const float wi = sdx * nlx + sdy * nly + sdz * nlz;
       if (wo <= 0.0f && wi > 0.0f &&
-          !any_hit<BLOCKED>(sc, n, B, hx, hy, hz, sdx, sdy, sdz,
-                            ln - kEps)) {
+          !any_hit<BLOCKED>(B, hx, hy, hz, sdx, sdy, sdz, ln - kEps)) {
         const float s =
             kFourPi * lrad * lrad * wi * (-wo) / (ln_s * ln_s);
         ld_r += s * sc[4 * n + li];
@@ -538,7 +530,8 @@ __device__ __forceinline__ bool bounce(Path& path, uint32_t& s0, uint32_t& s1,
 }
 
 template <bool DIRECT_ONLY, int RNG, bool BLOCKED>
-__global__ void __launch_bounds__(BLOCKED ? kThreadsK2 : kThreadsK1)
+__global__ void __launch_bounds__(BLOCKED ? kThreadsK2 : kThreadsK1,
+                                  BLOCKED ? 1 : kMinBlocksK1)
 pt_pass_kernel(const float* __restrict__ scene, int n,
                const float* __restrict__ halves,
                const float* __restrict__ bounds, int nb,
@@ -552,19 +545,21 @@ pt_pass_kernel(const float* __restrict__ scene, int n,
                uint32_t* s1_out, float* acc_out, int rp, int width,
                int height, float inv_w, float inv_h, int max_depth) {
   extern __shared__ __align__(16) float smem[];
-  // K1: the [kRows, n] table sc. K2: the float4 records of Blocked
-  // (sphere, block bound, group bound); its table sc stays in device memory.
+  // Both: a (cx, cy, cz, rad) record per sphere. K1: then the [kRows, n]
+  // table sc. K2: then the half block, block and group bounds of Blocked;
+  // its table sc stays in device memory.
+  float4* g4 = reinterpret_cast<float4*>(smem);
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    g4[i] = make_float4(scene[i], scene[n + i], scene[2 * n + i],
+                        scene[3 * n + i]);
   const float* sc;
   float* cs;
-  Blocked B;
+  Blocked B{g4, nullptr, nullptr, nullptr, make_float4(0.0f, 0.0f, 0.0f, 0.0f),
+            n, 0, 0, false};
   if constexpr (BLOCKED) {
-    float4* g4 = reinterpret_cast<float4*>(smem);
     float4* h4 = g4 + n;
     float4* b4 = h4 + 2 * nb;
     float4* q4 = b4 + nb;
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      g4[i] = make_float4(scene[i], scene[n + i], scene[2 * n + i],
-                          scene[3 * n + i]);
     for (int i = threadIdx.x; i < 2 * nb; i += blockDim.x)
       h4[i] = make_float4(halves[i], halves[2 * nb + i], halves[4 * nb + i],
                           halves[6 * nb + i]);
@@ -579,9 +574,10 @@ pt_pass_kernel(const float* __restrict__ scene, int n,
     B = Blocked{g4, h4, b4, q4, make_float4(rest[0], rest[1], rest[2], rest[3]),
                 n, nb, ng, cull_flag != 0};
   } else {
-    for (int i = threadIdx.x; i < kRows * n; i += blockDim.x) smem[i] = scene[i];
-    sc = smem;
-    cs = smem + kRows * n;
+    float* tab = reinterpret_cast<float*>(g4 + n);
+    for (int i = threadIdx.x; i < kRows * n; i += blockDim.x) tab[i] = scene[i];
+    sc = tab;
+    cs = tab + kRows * n;
   }
   // cs: [12] orig, dir, x, y; ls: [n_lights]
   int* ls = reinterpret_cast<int*>(cs + 12);
@@ -684,8 +680,8 @@ template <bool DIRECT_ONLY, int RNG, bool BLOCKED>
 cudaError_t launch(const PassArgs& a, cudaStream_t stream) {
   const int threads = BLOCKED ? kThreadsK2 : kThreadsK1;
   const size_t smem =
-      (BLOCKED ? sizeof(float4) * (a.n + 3 * a.nb + a.ng)
-               : sizeof(float) * kRows * a.n) +
+      sizeof(float4) * a.n +
+      (BLOCKED ? sizeof(float4) * (3 * a.nb + a.ng) : sizeof(float) * kRows * a.n) +
       sizeof(float) * 12 + sizeof(int) * a.n_lights;
   const int blocks = (a.rp + threads - 1) / threads;
   pt_pass_kernel<DIRECT_ONLY, RNG, BLOCKED><<<blocks, threads, smem, stream>>>(

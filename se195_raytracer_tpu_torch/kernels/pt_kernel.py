@@ -421,7 +421,8 @@ def pt_multi_pass(
     if s0.device.type == "cpu":
         return pt_pass_reference(scene_tab, cam_tab, start_sample, s0, s1, acc, **kw)
     _check_launch(s0, rng)
-    _check_cuda_inputs(scene_tab, cam_tab, s0, s1, acc, light_indices, 12 * scene_tab.shape[1])
+    # K1's shared memory: a (center, radius) record per sphere and the table.
+    _check_cuda_inputs(scene_tab, cam_tab, s0, s1, acc, light_indices, 16 * scene_tab.shape[1])
     lib = _kernel_lib()
     lights, outs = _lights_and_outputs(light_indices, s0, s1, acc)
     err = lib.pt_multi_pass_cuda(

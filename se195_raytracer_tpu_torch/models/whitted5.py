@@ -31,7 +31,7 @@ differentiable slice) raises.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -331,15 +331,19 @@ def get_color(scene: Whitted5Scene, idx: torch.Tensor, point: torch.Tensor):
 
 
 def calc_shade(scene: Whitted5Scene, light: int, point: torch.Tensor, state: MWCState,
-               draw_mask: torch.Tensor, n_samples: int):
+               draw_mask: torch.Tensor, n_samples: int, on_sweep: Optional[Callable] = None):
     """CalcShade (raytracer.cpp:371-406): (shade [R], L [R, 3], new state).
     A sphere light: binary visibility of the light. Anything else is a box
     area light: ``n_samples`` jittered grid samples on its bottom face, each
-    weighted 1/n_samples, drawing u1 then u2 per sample where ``draw_mask``."""
+    weighted 1/n_samples, drawing u1 then u2 per sample where ``draw_mask``.
+    ``on_sweep(o, d, mask, max_t, target)`` sees every shadow ray, ``mask``
+    the lanes whose node is shaded (``draw_mask``)."""
     if scene.ptype[light] == SPHERE5:
         ldir = scene.center[light][None] - point
         tdist = sqrt_rn(torch.clamp(dot3(ldir, ldir), min=1e-30))
         ldir = ldir / tdist[:, None]
+        if on_sweep is not None:
+            on_sweep(point + ldir * _EPS, ldir, draw_mask, tdist, light)
         vis = _nearest_is(scene, point + ldir * _EPS, ldir, tdist, light)
         return torch.where(vis, 1.0, 0.0), ldir, state
     pos = scene.box_pos[light]
@@ -360,16 +364,26 @@ def calc_shade(scene: Whitted5Scene, light: int, point: torch.Tensor, state: MWC
         sdir = torch.stack([gx, pos[1].expand_as(gx), gz], dim=-1) - point
         ldist = sqrt_rn(torch.clamp(dot3(sdir, sdir), min=1e-30))
         sdir = sdir / ldist[:, None]
+        if on_sweep is not None:
+            on_sweep(point + sdir * _EPS, sdir, draw_mask, ldist, light)
         vis = _nearest_is(scene, point + sdir * _EPS, sdir, ldist, light)
         shade = shade + torch.where(vis, 1.0, 0.0) * sscale
     return shade, ldir, state
 
 
 def _shade_node(scene: Whitted5Scene, o: torch.Tensor, d: torch.Tensor, state: MWCState,
-                draw_mask: torch.Tensor, area_samples: int):
+                draw_mask: torch.Tensor, area_samples: int, on_sweep: Optional[Callable] = None,
+                work: Optional[dict] = None):
     """One Raytrace node's local work (raytracer.cpp:239-285): nearest hit,
     light by light diffuse plus Phong-20 specular under CalcShade
-    visibility; a light that is hit returns its color."""
+    visibility; a light that is hit returns its color. ``on_sweep(o, d,
+    mask, max_t, target)`` sees the nearest sweep (max_t and target None,
+    ``mask`` the live lanes, ``draw_mask``) and every shadow ray. ``work``,
+    when a dict, gets ``shadow_sweeps_used`` added to it: the shadow rays of
+    the (node, light) pairs whose diffuse or specular term can use the
+    shade (K4 traces only those)."""
+    if on_sweep is not None:
+        on_sweep(o, d, draw_mask, None, None)
     idx, code, dist = find_nearest(scene, o, d)
     hit = idx >= 0
     safe = torch.clamp(idx, min=0)
@@ -388,7 +402,7 @@ def _shade_node(scene: Whitted5Scene, o: torch.Tensor, d: torch.Tensor, state: M
         if not scene.is_light[li]:
             continue
         shade, ldir, state = calc_shade(scene, li, point, state, draw_mask & hit & ~hit_light,
-                                        area_samples)
+                                        area_samples, on_sweep)
         pos_shade = shade > 0.0
         lcol = scene.color[li][None]
         dnl = dot3(ldir, n_hit)
@@ -399,6 +413,11 @@ def _shade_node(scene: Whitted5Scene, o: torch.Tensor, d: torch.Tensor, state: M
         spec_term = torch.where(pos_shade & (m_spec > 0.0) & (dvr > 0.0),
                                 _pow20(torch.clamp(dvr, min=0.0)) * m_spec * shade, 0.0)
         acc = acc + spec_term[:, None] * lcol
+        if work is not None:
+            used = draw_mask & hit & ~hit_light & (((m_diff > 0.0) & (dnl > 0.0))
+                                                   | ((m_spec > 0.0) & (dvr > 0.0)))
+            rays = 1 if scene.ptype[li] == SPHERE5 else area_samples
+            work["shadow_sweeps_used"] = work.get("shadow_sweeps_used", 0) + rays * int(used.sum())
 
     local = torch.where(hit_light[:, None], scene.color[safe],
                         torch.where(hit[:, None], acc, 0.0))
@@ -442,6 +461,7 @@ def whitted5_trace(
     soft_edges: float = 0.0,
     return_primary_idx: bool = False,
     work: Optional[dict] = None,
+    on_sweep: Optional[Callable] = None,
 ):
     """The binary reflect/refract tree of depth ``trace_depth`` (depth starts
     at 1 as in RenderRay, raytracer.cpp:457-474), levelwise: the 2^(l-1)
@@ -457,7 +477,9 @@ def whitted5_trace(
     (those that hit a non-light and are shaded), ``shadow_sweeps`` (one per
     sphere light and per box-light sample of a lit node), ``texels`` (lit
     nodes on a textured primitive: one bilinear fetch each) and ``glossy``
-    (disc samples drawn).
+    (disc samples drawn), and ``shadow_sweeps_used`` (``_shade_node``).
+    ``on_sweep`` is passed to ``_shade_node``: it sees
+    every nearest sweep and shadow ray of the live nodes.
 
     Returns (color [R, 3], advanced state), plus the level-1 hit ids ([R],
     -1 on a miss) when ``return_primary_idx``."""
@@ -483,7 +505,7 @@ def whitted5_trace(
         hvec = torch.tensor(heap_ids, dtype=torch.int64, device=dev).repeat_interleave(r)
         st = (_node_key(key_in.repeat(k), hvec), ctr_in.repeat(k))
         idx, code, dist, point, color, n_hit, local, st = _shade_node(
-            scene, o_b, d_b, st, valid, n_samp[level - 1])
+            scene, o_b, d_b, st, valid, n_samp[level - 1], on_sweep, work)
         if level == 1:
             primary_idx = idx
         hit = idx >= 0
@@ -569,20 +591,20 @@ def whitted5_trace(
 def trace_passes(scene: Whitted5Scene, o: torch.Tensor, d: torch.Tensor, state: MWCState, *,
                  spp: int = 1, mean: bool = True, trace_depth: int = TRACEDEPTH5,
                  area_samples_by_level=AREA_SAMPLES_BY_LEVEL, return_primary_idx: bool = False,
-                 work: Optional[dict] = None):
+                 work: Optional[dict] = None, on_sweep: Optional[Callable] = None):
     """``spp`` successive passes of ``whitted5_trace``, summed (then divided
     by spp when ``mean``). ``o``/``d`` are [R, 3] (every pass traces the same
     rays) or [spp, R, 3] (pass p traces set p). Returns (color [R, 3], state
     advanced by spp passes), plus the first pass's level-1 hit ids when
-    ``return_primary_idx``. ``work`` is passed to ``whitted5_trace``. This is
-    K4's plain version."""
+    ``return_primary_idx``. ``work`` and ``on_sweep`` are passed to
+    ``whitted5_trace``. This is K4's plain version."""
     if o.dim() == 2:
         o, d = o[None], d[None]
     acc, idx, st = None, None, state
     for p in range(spp):
         op, dp = o[p % o.shape[0]], d[p % d.shape[0]]
         col, st, pidx = whitted5_trace(scene, op, dp, st, trace_depth, area_samples_by_level,
-                                       return_primary_idx=True, work=work)
+                                       return_primary_idx=True, work=work, on_sweep=on_sweep)
         idx = pidx if idx is None else idx
         acc = col if acc is None else acc + col
     if mean:

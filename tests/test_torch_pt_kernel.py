@@ -312,6 +312,33 @@ def test_k2_matches_plain_on_cuda(rng):
                     p[which].cpu().numpy(), k[which].cpu().numpy())
 
 
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA device")
+@pytest.mark.parametrize("integrator,rng", CASES)
+def test_k1_records_bitwise_on_cuda(integrator, rng):
+    """K1's sweep over its float4 sphere records, unrolled, gives the bits of
+    K2's blocked sweep (cull on and off) on the same lanes: the Cornell
+    scene, 64x32, 3 spp, every lane's pixel its own (the identity layout);
+    and 1 + 2 passes give the bits of 3."""
+    spec = get_scene("cornell")
+    scene, camera = spec.to_scene("cuda"), spec.to_camera("cuda")
+    cfg = RenderConfig(width=64, height=32, spp=1, seed=4, integrator=integrator, rng=rng)
+    scene_tab = ptk.pack_scene(scene)
+    cam_tab = ptk.pack_camera(ptk.update_camera(camera, cfg.width, cfg.height))
+    s0, s1, acc = ptk.init_pt_state(cfg, "cuda")
+    pix = torch.arange(s0.shape[0], dtype=torch.int32, device="cuda")
+    kw = dict(width=cfg.width, height=cfg.height, max_depth=cfg.max_depth,
+              direct_only=integrator == "dl", light_indices=scene.light_indices, rng=rng)
+    k1 = ptk.pt_multi_pass(scene_tab, cam_tab, 0, s0, s1, acc, num_samples=3, **kw)
+    for cull in (True, False):
+        k2 = ptk.pt_blocked_pass(scene_tab, cam_tab, 0, s0, s1, acc, pix, num_samples=3,
+                                 cull=cull, **kw)
+        assert all(bool(torch.equal(a, b)) for a, b in zip(k1, k2)), cull
+    a = ptk.pt_multi_pass(scene_tab, cam_tab, 0, s0, s1, acc, num_samples=1, **kw)
+    a = ptk.pt_multi_pass(scene_tab, cam_tab, 1, *a, num_samples=2, **kw)
+    assert all(bool(torch.equal(x, y)) for x, y in zip(a[:2], k1[:2]))
+
+
 # ------------------------------------------------- K2's bounds and cull ----
 def _bound_sets(scene_tab):
     """{level: (bounds [4, k], sphere index sets [k, s])} of K2's sweep."""

@@ -26,6 +26,7 @@ The JAX package is imported inside the tests that use it, so that the
 ``cuda`` tests run on a GPU machine without JAX:
 ``python -m pytest tests/test_torch_whitted5.py --noconftest -m cuda``."""
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -434,6 +435,235 @@ def test_refusals():
     assert P.samples_per_level(4) == (2, 1, 1, 1)  # level l takes entry min(l, 3)
 
 
+# ------------------------------------------- K4's shadow test and prefilter ----
+def _far(scene):
+    """``scene`` scaled 10x and moved 1000 along each axis: the rounding of
+    a slab distance and of a hit point grows with the coordinates."""
+    n = scene.normal
+    return dataclasses.replace(
+        scene, center=scene.center * 10.0 + 1000.0, radius=scene.radius * 10.0,
+        depth=scene.depth * 10.0 - 1000.0 * (n[:, 0] + n[:, 1] + n[:, 2]),
+        box_pos=scene.box_pos * 10.0 + 1000.0, box_size=scene.box_size * 10.0)
+
+
+def _tie_scenes():
+    """Two scenes in which a copy of the light, a box light and a sphere
+    light each, sits at index 0 (before the light) or 2 (after it): every
+    shadow ray meets the copy at exactly the light's distance."""
+    out = []
+    for light_at in (0, 1):
+        b = S.Whitted5Builder()
+        for slot in range(3):
+            lit = slot == light_at
+            if slot == 2:
+                b.plane((0, 1, 0), 4.4, diff=1.0)
+            else:
+                b.box((-1, 5.0, 4), (2, 0.1, 2), is_light=lit, color=(0.5, 0.5, 0.5))
+        b.sphere((10.0, 0.0, -5.0), 0.5, is_light=True, color=(0.6, 0.6, 0.6))
+        b.sphere((10.0, 0.0, -5.0), 0.5)
+        out.append(b.build("cpu"))
+    return out
+
+
+def _shadow_rays(scene, target, n=512, seed=12):
+    """Shadow rays from the floor of room5 to points of light ``target``
+    (its box's bottom face or its sphere's center), origins offset by
+    EPSILON along the ray, as CalcShade makes them."""
+    rng = np.random.default_rng(seed)
+    p = np.stack([rng.uniform(-6, 6, n), np.full(n, -4.4), rng.uniform(0, 10, n)], 1)
+    if scene.ptype[target] == S.BOX5:
+        pos, size = scene.box_pos[target].numpy(), scene.box_size[target].numpy()
+        g = pos + rng.uniform(0, 1, (n, 3)) * size
+        g[:, 1] = pos[1]
+    else:
+        g = np.broadcast_to(scene.center[target].numpy(), (n, 3))
+    p, g = torch.from_numpy(p.astype(np.float32)), torch.from_numpy(g.astype(np.float32))
+    v = g - p
+    dist = torch.sqrt((v * v).sum(1))
+    d = v / dist[:, None]
+    return p + d * P._EPS, d, dist
+
+
+def test_k4_shadow_test_matches_nearest_is():
+    """K4's target-first shadow test (its torch mirror, ``shadow_visible``)
+    equals CalcShade's ``_nearest_is`` on every shadow ray of a small room5
+    trace, and where another primitive ties the light's distance before or
+    after it in index order."""
+    scene = S.room5_scene("procedural", device="cpu")
+    o, d = P._cached_rays5(24, 18, (0.0, 0.0), "cpu")
+    seen = {"rays": 0, "lit": 0}
+
+    def hook(o_, d_, mask, max_t, target):
+        if max_t is None:
+            return
+        o_, d_, mt = o_[mask], d_[mask], max_t[mask]
+        vis = wk.shadow_visible(scene, o_, d_, mt, target)
+        assert torch.equal(vis, P._nearest_is(scene, o_, d_, mt, target))
+        seen["rays"] += o_.shape[0]
+        seen["lit"] += int(vis.sum())
+
+    P.trace_passes(scene, o, d, P._cached_state5(24 * 18, 3, "cpu"), trace_depth=3,
+                   on_sweep=hook)
+    assert seen["rays"] > 1000 and 0 < seen["lit"] < seen["rays"]
+    for tie, light_at in zip(_tie_scenes(), (0, 1)):
+        for target in (light_at, 3):
+            o_, d_, dist = _shadow_rays(tie, target)
+            copy = {0: 1, 1: 0, 3: 4}[target]
+            dj, _, valid = P._prim_candidates(tie, o_, d_)
+            tied = valid[:, copy] & (dj[:, copy] == dj[:, target])
+            assert bool(tied.all())
+            vis = wk.shadow_visible(tie, o_, d_, dist + 1.0, target)
+            assert torch.equal(vis, P._nearest_is(tie, o_, d_, dist + 1.0, target))
+            # The first minimum takes the lower index of a tie.
+            assert bool((vis == (target < copy)).all()), (light_at, target)
+
+
+def _box_slack(scene, o, d, margin):
+    """Slack of every valid box candidate of rays (o, d) inside K4's
+    prefilter interval (negative: outside it, a hit the prefilter loses)."""
+    boxes, _ = wk.box_records(scene)
+    dist, _, valid = P._prim_candidates(scene, o, d)
+    lo_t, hi_t = wk.box_slab_bounds(scene, o, d, margin)
+    bd, bv = dist[:, list(boxes)], valid[:, list(boxes)]
+    return torch.minimum(bd - lo_t, hi_t - bd)[bv]
+
+
+def _nearest_wrong(scene, o, d, margin):
+    """Rays whose hit the mirror's nearest sweep gets other than
+    ``find_nearest``."""
+    best, amin, _ = wk.nearest_keeps(scene, o, d, margin)
+    idx, _, ref = P.find_nearest(scene, o, d)
+    return int(((idx >= 0) & ((amin != idx) | (best != ref))).sum())
+
+
+def _check_sweeps(scene, o, d, margin):
+    """Every nearest sweep and shadow ray of a room5 trace from rays (o, d)
+    against K4's box prefilter: (least slack of a valid box candidate inside
+    its interval, valid box candidates outside it, sweeps whose result the
+    mirror's nearest sweep or shadow test gets wrong, sweeps)."""
+    stats = dict(slack=float("inf"), outside=0, wrong=0, sweeps=0, axis=0)
+
+    def hook(o_, d_, mask, max_t, target):
+        o_, d_ = o_[mask], d_[mask]
+        slack = _box_slack(scene, o_, d_, margin)
+        if slack.numel():
+            stats["slack"] = min(stats["slack"], float(slack.min()))
+        stats["outside"] += int((slack < 0).sum())
+        stats["sweeps"] += o_.shape[0]
+        stats["axis"] += int((d_ == 0).any(dim=1).sum())
+        if max_t is None:
+            stats["wrong"] += _nearest_wrong(scene, o_, d_, margin)
+        else:
+            vis = wk.shadow_visible(scene, o_, d_, max_t[mask], target, margin)
+            stats["wrong"] += int((vis != P._nearest_is(scene, o_, d_, max_t[mask],
+                                                         target)).sum())
+
+    P.trace_passes(scene, o, d, P._cached_state5(o.shape[0], 3, "cpu"), trace_depth=3,
+                   on_sweep=hook)
+    return stats
+
+
+def _edge_rays(scene, back, n=1000, seed=5):
+    """For each box, ``n`` rays in random directions that pass within about
+    2 EPSILON of one of its edges, starting ``back`` before that point:
+    grazing hits, where the slab interval is thinnest."""
+    rng = np.random.default_rng(seed)
+    _, rec = wk.box_records(scene)
+    os_, ds = [], []
+    for v1, v2 in rec[:, :2].numpy().astype(np.float64):
+        p = v1 + rng.uniform(0, 1, (n, 3)) * (v2 - v1)
+        a1 = rng.integers(0, 3, n)
+        a2 = (a1 + rng.integers(1, 3, n)) % 3
+        rows = np.arange(n)
+        for a in (a1, a2):
+            p[rows, a] = np.where(rng.integers(0, 2, n) == 1, v2[a], v1[a]) + rng.normal(0, 2e-3, n)
+        d = rng.normal(0, 1, (n, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        os_.append(p - d * back)
+        ds.append(d)
+    return (torch.from_numpy(np.concatenate(os_).astype(np.float32)),
+            torch.from_numpy(np.concatenate(ds).astype(np.float32)))
+
+
+@pytest.mark.parametrize("placement", ["as_built", "far"])
+def test_k4_box_prefilter_is_exact(placement):
+    """On every sweep of a small room5 trace (24x18 at sub-pixel (0, 0),
+    whose middle column and row are axis-parallel rays, and their mirror
+    children), and on rays grazing the boxes' edges, every valid box
+    candidate lies inside K4's prefilter interval, so a skipped box never
+    holds a hit that the sweep would take: the mirror's nearest sweep gives
+    ``find_nearest``'s hits and its shadow test ``_nearest_is``. ``far``
+    scales the scene 10x, moves it 1000 away and starts every primary and
+    grazing ray 1e5 before where it would start: the rounding of a slab
+    distance then exceeds the EPSILON widening, and without its rounding
+    margins (margin 0) the prefilter loses hits of the trace and of the
+    grazing rays and gets grazing rays' nearest hits wrong. Least slack as
+    built: 1.3e-3 (room5 trace), 1.4e-4 (its grazing rays), 2.7e-3 and 0.195
+    (far); at margin 0 (far): -7.8e-3 in the trace, 1048 of 7906 grazing
+    hits lost, 72 nearest hits wrong."""
+    scene = S.room5_scene("procedural", device="cpu")
+    o, d = P._cached_rays5(24, 18, (0.0, 0.0), "cpu")
+    back = 0.0
+    if placement == "far":
+        back = 1e5
+        scene, o = _far(scene), o * 10.0 + 1000.0 - d * back
+    stats = _check_sweeps(scene, o, d, 1.0)
+    assert stats["sweeps"] > 3000 and stats["axis"] > 30, stats
+    assert stats["outside"] == 0 and stats["wrong"] == 0 and stats["slack"] >= 0.0, stats
+    eo, ed = _edge_rays(scene, max(back, 10.0))
+    slack = _box_slack(scene, eo, ed, 1.0)
+    assert slack.numel() > 1000 and float(slack.min()) >= 0.0
+    assert _nearest_wrong(scene, eo, ed, 1.0) == 0
+    if placement == "far":
+        bare = _check_sweeps(scene, o, d, 0.0)
+        assert bare["outside"] > 0 and bare["slack"] < 0.0, bare
+        assert int((_box_slack(scene, eo, ed, 0.0) < 0).sum()) > 0
+        assert _nearest_wrong(scene, eo, ed, 0.0) > 0
+
+
+def test_k4_box_records_are_the_kernels_sums():
+    """``box_records``, which the prefilter mirror reads and K4 makes once
+    per block, are the float32 sums of the exact box test: v2 = v1 + size,
+    lo = v1 - EPSILON, hi = v2 + EPSILON, bitwise (numpy float32)."""
+    for scene in (S.room5_scene("procedural", device="cpu"),
+                  _far(S.room5_scene("procedural", device="cpu"))):
+        boxes, rec = wk.box_records(scene)
+        assert boxes == tuple(j for j, t in enumerate(scene.ptype) if t == S.BOX5)
+        pos = scene.box_pos.numpy()[list(boxes)]
+        size = scene.box_size.numpy()[list(boxes)]
+        eps = np.float32(0.001)
+        v2 = pos + size
+        assert v2.dtype == np.float32
+        for k, want in enumerate((pos, v2, pos - eps, v2 + eps)):
+            np.testing.assert_array_equal(rec[:, k].numpy(), want)
+
+
+def test_k4_shared_memory_capacity():
+    """K4's wrapper takes a scene of up to 1117 primitives with two textures
+    (a block's shared memory opted in past 48 KB to the 227 KB sm_90
+    allows) and refuses one more: the 384 that fit at 32 words per
+    primitive, before the geometry records and index lists, still fit."""
+    assert wk.shared_memory_bytes(384, 2) > 48 * 1024
+    assert wk.shared_memory_bytes(1117, 2) <= 227 * 1024
+    with pytest.raises(ValueError, match="1118 primitives"):
+        wk.shared_memory_bytes(1118, 2)
+
+
+def _large_scene(device):
+    """401 primitives (more than fit in 48 KB of shared memory): a floor,
+    a box light, 200 spheres and 199 boxes in front of the camera."""
+    b = S.Whitted5Builder()
+    b.plane((0, 1, 0), 4.4, diff=1.0, color=(0.6, 0.6, 0.6))
+    b.box((-1, 5.0, 4), (2, 0.1, 2), is_light=True, color=(0.9, 0.9, 0.9))
+    for k in range(200):
+        b.sphere((-5.0 + 0.5 * (k % 20), -3.0 + 0.6 * (k // 20), 9.0), 0.2, diff=0.8,
+                 spec=0.3, refl=0.2, color=(0.3 + 0.003 * k, 0.5, 0.7))
+    for k in range(199):
+        b.box((-5.0 + 0.5 * (k % 20), -3.0 + 0.6 * (k // 20), 6.0), (0.2, 0.2, 0.2),
+              diff=0.7, color=(0.8, 0.4, 0.2))
+    return b.build(device)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -473,3 +703,45 @@ def test_k4_matches_plain_on_cuda(cuda):
     assert torch.equal(st[1], pst[1])
     assert (idx.long() == pidx).double().mean().item() >= 0.9999
     _robust_close(col.cpu().numpy(), pcol.cpu().numpy(), "K4 vs plain")
+
+
+@pytest.mark.cuda
+def test_k4_bitwise_on_cuda(cuda):
+    """K4 against the plain tracer on the card, bitwise: colour, counters
+    and primary ids at 160x120, spp 2, sub-pixel (0, 0) (axis-parallel rays
+    in the middle column and row), for room5, the deterministic scene and
+    the two tie scenes; one launch each."""
+    o, d = P._cached_rays5(160, 120, (0.0, 0.0), "cuda")
+    state = P._cached_state5(160 * 120, 3, "cuda")
+    scenes = [S.room5_scene("procedural", device="cuda"), _det_rows(S).build("cuda")]
+    scenes += [t.to("cuda") for t in _tie_scenes()]
+    for scene in scenes:
+        before = wk.whitted5_trace_cuda.launches
+        col, st, idx = wk.whitted5_trace_cuda(scene, o, d, state, spp=2,
+                                              return_primary_idx=True)
+        torch.cuda.synchronize()
+        assert wk.whitted5_trace_cuda.launches == before + 1
+        pcol, pst, pidx = P.trace_passes(scene, o, d, state, spp=2, return_primary_idx=True)
+        assert torch.equal(st[1], pst[1])
+        assert torch.equal(idx.long(), pidx)
+        assert torch.equal(col, pcol), (col - pcol).abs().max().item()
+
+
+@pytest.mark.cuda
+def test_k4_large_scene_on_cuda(cuda):
+    """A scene of 401 primitives, whose block needs more than the default
+    48 KB of shared memory, renders in one K4 launch bitwise equal to the
+    plain tracer (64x48, spp 1)."""
+    scene = _large_scene("cuda")
+    assert wk.shared_memory_bytes(scene.num_prims, 0) > 48 * 1024
+    o, d = P._cached_rays5(64, 48, (0.5, 0.5), "cuda")
+    state = P._cached_state5(64 * 48, 3, "cuda")
+    before = wk.whitted5_trace_cuda.launches
+    col, st, idx = wk.whitted5_trace_cuda(scene, o, d, state, return_primary_idx=True)
+    torch.cuda.synchronize()
+    assert wk.whitted5_trace_cuda.launches == before + 1
+    pcol, pst, pidx = P.trace_passes(scene, o, d, state, return_primary_idx=True)
+    assert torch.equal(st[1], pst[1])
+    assert torch.equal(idx.long(), pidx)
+    assert bool((pidx >= 2).any())  # the rays meet the grid
+    assert torch.equal(col, pcol), (col - pcol).abs().max().item()
