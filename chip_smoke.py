@@ -28,20 +28,29 @@
    one K3 launch per render), K3 timing and the K3 split (trace_depth 1, 2,
    5 x supersample 1, 3, each with the plain tracer's live nodes);
 9. K5 (the texel fetch of csrc/whitted5_kernel.cu, alone) against
-   models/whitted5._texel, bitwise, on 2^18 lanes of two atlases: the
-   procedural room5 one and a 2 x 200 x 200 u8/256 one written as TGA files
-   and read through io/tga.py; its timing;
+   models/whitted5._texel, bitwise, in both forms of its texel units: the
+   procedural room5 textures (float RGBA) and 2 x 200 x 200 u8/256 ones
+   written as TGA files and read through io/tga.py (u8 quads), each on three
+   lane sets: 2^18 and 2^22 random lanes and K4's own fetches at room5
+   800x600 spp 1 (the plain tracer's ``on_texel``); each timed (device
+   time, and back-to-back launches) beside its bound, its plain version and
+   the torch gather; the K4 stream once more with every lane dead;
 10. K4 (csrc/whitted5_kernel.cu) against the plain tracer, room5 800x600,
     spp 1, seed 3, depth 4, and the deterministic scene; K4's exact box
     tests per sweep, counted by the torch mirror of its sweeps;
 11. the whitted5 main paths at room5 800x600 (CLI brute and adaptive,
     render_whitted5 at spp 8, render_whitted5_4ray, the adaptive pipeline
     under the CUDA sync check), counters set to 0 before each, each held
-    against its plain version;
+    against its plain version; then the path of users with the reference's
+    TGA assets (room5 resolving to the u8/256 200 x 200 files through
+    SE195_REF_TEXTURES: the CLI at spp 8, render_whitted5 at spp 8 and K4
+    at spp 1, bitwise against the plain tracer);
 12. whitted5 timings at 320x240 and 800x600 for spp 1, spp 8, 4-ray and
     adaptive, with bounds from the plain tracer's live-work count, the
     adaptive against 4-ray ratio and PSNRs; the K4 split (trace_depth 1, 2,
-    4 x two shadow-sample tables at 800x600 spp 1);
+    4 x two shadow-sample tables at 800x600 spp 1); K5's share of K4 at
+    room5 800x600 spp 8 on both texture sets (K4 against a twin scene
+    without texture ids, in turns);
 13. prints one JSON line per kernel (``{"kernels": [...]}``, K1-K5) and,
     last, ``{"ok": true, "device": {...}}``.
 
@@ -52,6 +61,7 @@ device is present.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -108,7 +118,13 @@ W5_OPS_SAMPLE = 40
 W5_OPS_TEXEL = 60
 W5_OPS_GLOSSY = 50
 K5_OPS_LANE = 40  # per K5 lane: index math and the 3-channel blend
-K5_LANES = 1 << 18
+K5_BYTES_LANE = 4 + 4 + 4 + 1 + 12  # tex, u, v, live in; 3 floats out
+# K5's lane sets: random lanes (2^18, and 2^22 where the bound is well
+# above a launch's latency) and K4's own fetches (K5_STREAM); the kernels
+# line reports K5_HEADLINE.
+K5_RANDOM = {"random 2^18": 1 << 18, "random 2^22": 1 << 22}
+K5_STREAM = "K4 stream"
+K5_HEADLINE = ("u8", "random 2^22")
 W5_SIZES = ((320, 240), (800, 600))
 W5_SPP = 8
 W5_SEED = 3
@@ -822,50 +838,46 @@ def uv_lanes(n, seed, device):
     return tuple(torch.from_numpy(a).to(device) for a in (tex, u, v))
 
 
-def k5_section(tmp):
-    """Phase 9: K5 alone against _texel, bitwise, on two atlases; timing."""
+def write_u8_textures(tmp, size=200):
+    """The reference's two room5 assets' stand-ins: random u8 TGA files of
+    ``size`` x ``size`` in ``tmp`` (io/tga.py reads them as k/256)."""
     import numpy as np
-    import torch
 
     from se195_raytracer_tpu_torch.io.tga import write_tga
-    from se195_raytracer_tpu_torch.kernels import texel_kernel as tk
-    from se195_raytracer_tpu_torch.models import whitted5 as P
-    from se195_raytracer_tpu_torch.scenes import whitted5_scenes as S
 
-    print(f"[9] K5 against _texel on the card, {K5_LANES} lanes")
     rng = np.random.default_rng(0)
     for name in ("checker", "marble"):
         write_tga(os.path.join(tmp, f"{name}.tga"),
-                  rng.integers(0, 256, size=(200, 200, 3)).astype(np.uint8))
-    atlases = {"procedural 2x64x64": S.room5_scene("procedural", device="cuda"),
-               "u8/256 2x200x200 via io/tga": S.room5_scene("real", device="cuda",
-                                                            textures_dir=tmp)}
-    tex, u, v = uv_lanes(K5_LANES, 1, "cuda")
-    live = torch.ones(K5_LANES, dtype=torch.bool, device="cuda")
-    bad_lanes, max_err = 0, 0.0
-    for label, scene in atlases.items():
-        flat, textab = tk.pack_texel_atlas(scene.textures)
-        th, tw = scene.textures[0].shape[:2]
-        out = tk.texel_fetch_cuda(flat, textab, tex, u, v, live)
-        ref = P._texel(torch.cat(list(scene.textures)), u, v, row_offset=tex * th,
-                       wrap_shape=(th, tw)).T
-        plain = tk.texel_fetch_reference(flat, textab, tex, u, v, live)
-        diff = int((out != ref).any(dim=0).sum())
-        bad_lanes += diff
-        max_err = max(max_err, (out - ref).abs().max().item())
-        print(f"  {label}: {diff} lanes differ from _texel, {int((out != plain).any(dim=0).sum())} "
-              f"from texel_fetch_reference; max_abs_err {(out - ref).abs().max().item():.3g}")
-        check(bool(torch.isfinite(out).all()), f"K5 {label}: not finite")
-    check(bad_lanes == 0, f"K5: {bad_lanes} lanes differ from _texel")
+                  rng.integers(0, 256, size=(size, size, 3)).astype(np.uint8))
 
-    print("  K5 timing (u8/256 200x200 atlas)")
-    scene = atlases["u8/256 2x200x200 via io/tga"]
-    flat, textab = tk.pack_texel_atlas(scene.textures)
-    kernel_ms, kall = launch_ms(lambda: tk.texel_fetch_cuda(flat, textab, tex, u, v, live))
-    plain_ms, pall = median_ms(lambda: tk.texel_fetch_reference(flat, textab, tex, u, v, live),
-                               reps=20)
-    # The library yardstick: torch's gather atlas[v, u] at the four corners
-    # and the blend, indices and weights made beforehand (plain torch).
+
+def k4_texel_stream(scene, width, height):
+    """(tex, u, v): every texel fetch of the plain tracer at ``width`` x
+    ``height``, spp 1, seed W5_SEED, node-major and in ray order within a
+    node, as K4 meets them."""
+    import torch
+
+    from se195_raytracer_tpu_torch.models import whitted5 as P
+
+    o, d = P._cached_rays5(width, height, (0.5, 0.5), "cuda")
+    lanes = []
+    P.trace_passes(scene, o, d, P._cached_state5(width * height, W5_SEED, "cuda"),
+                   on_texel=lambda t, u, v: lanes.append((t, u, v)))
+    return tuple(torch.cat(x) for x in zip(*lanes))
+
+
+def k5_bytes(n, flat, textab):
+    """K5's bytes for ``n`` lanes: 25 B a lane and the [texels, 3] float32
+    atlas and its table read once (the yardstick of every layout)."""
+    return n * K5_BYTES_LANE + flat.numel() * 4 + textab.numel() * 4
+
+
+def gather_blend(scene, tex, u, v):
+    """The library yardstick of K5: torch's gather atlas[v, u] at the four
+    corners and the blend, indices and weights made beforehand (plain
+    torch; the textures of ``scene`` share one shape). Returns the call."""
+    import torch
+
     atlas2 = torch.cat(list(scene.textures))
     th, tw = scene.textures[0].shape[:2]
     fu, fv = (u + 1000.5) * tw, (v + 1000.0) * tw
@@ -875,16 +887,140 @@ def k5_section(tmp):
     fx, fy = fu - torch.floor(fu), fv - torch.floor(fv)
     w = [((1 - fx) * (1 - fy))[:, None], (fx * (1 - fy))[:, None], ((1 - fx) * fy)[:, None],
          (fx * fy)[:, None]]
-    lib_ms, lall = median_ms(lambda: atlas2[v1, u1] * w[0] + atlas2[v1, u2] * w[1]
-                             + atlas2[v2, u1] * w[2] + atlas2[v2, u2] * w[3], reps=20)
-    n = K5_LANES
-    nbytes = n * (4 + 4 + 4 + 1) + n * 12 + flat.numel() * 4 + textab.numel() * 4
-    print(f"  K5 kernel {kernel_ms:.5f} ms (reps {min(kall):.5f}-{max(kall):.5f}), plain "
-          f"{plain_ms:.4f} ms, torch gather + blend {lib_ms:.4f} ms")
-    bound_ms, bound_by = bound(n * K5_OPS_LANE, nbytes, kernel_ms, "K5")
-    return {"max_abs_err": max_err, "mismatch_frac": bad_lanes / n,
-            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "lanes": n, "atlas_bytes": flat.numel() * 4}
+    return lambda: (atlas2[v1, u1] * w[0] + atlas2[v1, u2] * w[1]
+                    + atlas2[v2, u1] * w[2] + atlas2[v2, u2] * w[3])
+
+
+def k5_lane_sets(stream):
+    """{label: (tex, u, v)}: K5_RANDOM's random lanes and K4's ``stream``."""
+    sets = {label: uv_lanes(n, k + 1, "cuda") for k, (label, n) in enumerate(K5_RANDOM.items())}
+    sets[K5_STREAM] = stream
+    return sets
+
+
+def k5_atlases(tmp):
+    """{form: room5 scene}: the procedural textures (float form) and the
+    u8/256 2 x 200 x 200 TGA files in ``tmp`` (u8 form)."""
+    from se195_raytracer_tpu_torch.scenes import whitted5_scenes as S
+
+    return {"f32": S.room5_scene("procedural", device="cuda"),
+            "u8": S.room5_scene("real", device="cuda", textures_dir=tmp)}
+
+
+def k5_section(tmp):
+    """Phase 9: K5 alone against _texel, bitwise, in both forms on three
+    lane sets; device time (and back-to-back launch time), bounds, plain
+    and torch gather."""
+    import torch
+
+    from se195_raytracer_tpu_torch.kernels import texel_kernel as tk
+    from se195_raytracer_tpu_torch.models import whitted5 as P
+
+    write_u8_textures(tmp)
+    atlases = k5_atlases(tmp)
+    w, h = W5_SIZES[-1]
+    stream = k4_texel_stream(atlases["f32"], w, h)
+    sets = k5_lane_sets(stream)
+    print(f"[9] K5 against _texel on the card: lane sets "
+          f"{ {k: int(v[0].shape[0]) for k, v in sets.items()} } (the K4 stream: every fetch "
+          f"of room5 {w}x{h} spp 1)")
+    rows, bad_lanes, all_lanes, max_err = {}, 0, 0, 0.0
+    for form, scene in atlases.items():
+        layout = tk.pack_texel_units(scene.textures)
+        forms = layout.table[:, 3].tolist()
+        want = tk.TEX_U8 if form == "u8" else tk.TEX_F32
+        check(forms == [want] * len(forms), f"K5 {form}: packed in forms {forms}")
+        flat, textab = tk.pack_texel_atlas(scene.textures)
+        th, tw = scene.textures[0].shape[:2]
+        atlas = torch.cat(list(scene.textures))
+        for label, (tex, u, v) in sets.items():
+            live = torch.ones_like(u, dtype=torch.bool)
+            out = tk.texel_fetch_cuda(flat, textab, tex, u, v, live, layout=layout)
+            ref = P._texel(atlas, u, v, row_offset=tex * th, wrap_shape=(th, tw)).T
+            diff = int((out != ref).any(dim=0).sum())
+            err = (out - ref).abs().max().item()
+            bad_lanes += diff
+            all_lanes += u.shape[0]
+            max_err = max(max_err, err)
+            check(bool(torch.isfinite(out).all()), f"K5 {form} {label}: not finite")
+            n = u.shape[0]
+
+            def kernel():
+                return tk.texel_fetch_cuda(flat, textab, tex, u, v, live, layout=layout)
+
+            gather = gather_blend(scene, tex, u, v)
+            kernel_ms = device_ms(kernel, "texel_fetch_kernel")
+            plain_ms = device_ms(lambda: tk.texel_fetch_reference(flat, textab, tex, u, v, live))
+            lib_ms = device_ms(gather)
+            events_ms, kall = launch_ms(kernel)
+            lib_events_ms, _ = median_ms(gather, reps=20)
+            print(f"  K5 {form} {tuple(scene.textures[0].shape)} x {len(scene.textures)}, {label} "
+                  f"({n} lanes): {diff} lanes differ from _texel (max_abs_err {err:.3g}); device "
+                  f"time per call: kernel {kernel_ms:.5f} ms, plain {plain_ms:.4f} ms, torch "
+                  f"gather + blend {lib_ms:.4f} ms; CUDA events: kernel {events_ms:.5f} ms per "
+                  f"back-to-back launch (reps {min(kall):.5f}-{max(kall):.5f}), torch gather + "
+                  f"blend {lib_events_ms:.4f} ms per call")
+            bound_ms, bound_by = bound(n * K5_OPS_LANE, k5_bytes(n, flat, textab), kernel_ms,
+                                       f"K5 {form} {label}")
+            rows[f"{form} {label}"] = dict(lanes=n, ms=kernel_ms, plain_ms=plain_ms,
+                                           library_ms=lib_ms, bound_ms=bound_ms,
+                                           bound_by=bound_by, share=bound_ms / kernel_ms,
+                                           events_ms=events_ms, library_events_ms=lib_events_ms,
+                                           unit_bytes=layout.units.numel())
+    check(bad_lanes == 0, f"K5: {bad_lanes} lanes differ from _texel")
+    # The floor under the K4 stream: the same launch with every lane dead
+    # (each reads its live flag, texture id and coordinates, and writes 0).
+    tex, u, v = stream
+    dead = torch.zeros_like(u, dtype=torch.bool)
+    flat, textab = tk.pack_texel_atlas(atlases["u8"].textures)
+    layout = tk.pack_texel_units(atlases["u8"].textures)
+    floor_ms = device_ms(lambda: tk.texel_fetch_cuda(flat, textab, tex, u, v, dead, layout=layout),
+                         "texel_fetch_kernel")
+    print(f"  K5 on the K4 stream with every lane dead (no fetch): device time {floor_ms:.5f} ms")
+    head = rows[" ".join(K5_HEADLINE)]
+    return {"max_abs_err": max_err, "mismatch_frac": bad_lanes / all_lanes,
+            **{k: head[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                    "lanes")},
+            "headline": " ".join(K5_HEADLINE), "lane_sets": rows, "stream_dead_ms": floor_ms}
+
+
+def k5_share(scene, label, w, h, spp):
+    """K5's share of K4 at room5 ``w`` x ``h``, spp ``spp``: K4 on ``scene``
+    and on its twin without texture ids (the same geometry and materials,
+    no fetch), in turns (with, without, without, with). The plain tracer
+    must count the same live nodes and traced shadow sweeps for both (a
+    texture changes no ray). Returns the entry."""
+    import torch
+
+    from se195_raytracer_tpu_torch.kernels import whitted5_kernel as w5k
+    from se195_raytracer_tpu_torch.models import whitted5 as P
+
+    twin = dataclasses.replace(scene, tex_id=tuple(-1 for _ in scene.tex_id))
+    o, d = P._cached_rays5(w, h, (0.5, 0.5), "cuda")
+    state = P._cached_state5(w * h, W5_SEED, "cuda")
+    works = []
+    for sc in (scene, twin):
+        works.append({})
+        P.trace_passes(sc, o, d, state, spp=spp, work=works[-1])
+    for key in ("nodes", "lit", "shadow_sweeps_used", "glossy"):
+        check(works[0][key] == works[1][key], f"K5 share {label}: {key} {works[0][key]} with "
+              f"textures, {works[1][key]} without")
+    calls = {"with": lambda: w5k.whitted5_trace_cuda(scene, o, d, state, spp=spp),
+             "without": lambda: w5k.whitted5_trace_cuda(twin, o, d, state, spp=spp)}
+    got = {"with": [], "without": []}
+    for which in ("with", "without", "without", "with"):
+        got[which].append(launch_ms(calls[which], n=5)[0])
+    with_ms, without_ms = (statistics.mean(got[k]) for k in ("with", "without"))
+    fetches = works[0]["texels"]
+    share = (with_ms - without_ms) / with_ms
+    torch.cuda.synchronize()
+    print(f"  K5's share of K4, {label}, room5 {w}x{h} spp {spp}: K4 with textures "
+          f"{got['with'][0]:.4f} / {got['with'][1]:.4f} ms, without "
+          f"{got['without'][0]:.4f} / {got['without'][1]:.4f} ms (the same {works[0]['nodes']} "
+          f"live nodes and {works[0]['shadow_sweeps_used']} traced shadow sweeps); share "
+          f"{share:.2%}, {fetches} fetches, {(with_ms - without_ms) * 1e6 / fetches:.4f} ns per "
+          f"fetch (the uv mapping included)")
+    return dict(with_ms=with_ms, without_ms=without_ms, share=share, fetches=fetches)
 
 
 def k4_contract(a, b, tag, idx_a=None, idx_b=None):
@@ -1033,6 +1169,7 @@ def k4_section(tmp):
             torch.cuda.set_sync_debug_mode("default")
 
     frames["adaptive"], n_edge = counted("adaptive_pipeline (no host sync)", adaptive_no_sync, 2)
+    k4_reference_textures(tmp, base, counted)
     frac = int(n_edge) / r
     print(f"  adaptive: edge fraction {frac:.6f} ({int(n_edge)} of {r} pixels), bucket "
           f"{P.adaptive_bucket(w, h)}")
@@ -1053,7 +1190,57 @@ def k4_section(tmp):
         for cfg in ("spp1", f"spp{W5_SPP}", "4ray", "adaptive"):
             cells[f"{cw}x{ch} {cfg}"] = w5_cell(scene, cw, ch, cfg)
     diag = {"box_tests": box_tests, "split": k4_split(scene, w, h, {})}
-    return errs, main_launches, cells, frac, diag
+    k5_shares = {form: k5_share(sc, f"{form} textures", w, h, W5_SPP)
+                 for form, sc in k5_atlases(tmp).items()}
+    return errs, main_launches, cells, frac, diag, k5_shares
+
+
+def k4_reference_textures(tmp, base, counted):
+    """The path of users with the reference's TGA assets: room5 resolves to
+    the files in ``tmp`` (u8/256, 200 x 200, written by k5_section) through
+    SE195_REF_TEXTURES, and its textures take K5's u8 form. The CLI at spp
+    8, render_whitted5 at spp 8 (counted, bitwise against the plain render)
+    and K4 at spp 1 (colour, counters and primary ids bitwise against the
+    plain tracer), at room5 800x600."""
+    import torch
+
+    from se195_raytracer_tpu_torch import cli
+    from se195_raytracer_tpu_torch.kernels import texel_kernel as tk
+    from se195_raytracer_tpu_torch.kernels import whitted5_kernel as w5k
+    from se195_raytracer_tpu_torch.models import whitted5 as P
+    from se195_raytracer_tpu_torch.scenes import whitted5_scenes as S
+
+    w, h = W5_SIZES[-1]
+    saved = os.environ.get(S.REF_TEXTURES_ENV)
+    os.environ[S.REF_TEXTURES_ENV] = tmp
+    try:
+        png = os.path.join(tmp, "room5_tga.png")
+        rc = counted(f"cli --spp {W5_SPP} (room5 with the TGA textures)",
+                     lambda: cli.main(base + ["--spp", str(W5_SPP), "--out", png]), 1)
+        check(rc == 0, f"cli whitted5 with TGA textures exited {rc}")
+        scene = S.WHITTED5_SCENES["room5"]("cuda")
+    finally:
+        if saved is None:
+            os.environ.pop(S.REF_TEXTURES_ENV)
+        else:
+            os.environ[S.REF_TEXTURES_ENV] = saved
+    shapes = [tuple(t.shape) for t in scene.textures]
+    forms = w5k._packed(scene)[3].table[:, 3].tolist()
+    check(shapes == [(200, 200, 3)] * 2 and forms == [tk.TEX_U8] * 2,
+          f"room5 with TGA textures: shapes {shapes}, forms {forms}")
+    frame = counted(f"render_whitted5 spp {W5_SPP} (TGA textures)", lambda: P.render_whitted5(
+        scene, w, h, spp=W5_SPP, seed=W5_SEED), 1)
+    plain = P.render_whitted5(scene, w, h, spp=W5_SPP, seed=W5_SEED, use_kernel=False)
+    o, d = P._cached_rays5(w, h, (0.5, 0.5), "cuda")
+    state = P._cached_state5(w * h, W5_SEED, "cuda")
+    col, st, idx = w5k.whitted5_trace_cuda(scene, o, d, state, return_primary_idx=True)
+    pcol, pst, pidx = P.trace_passes(scene, o, d, state, return_primary_idx=True)
+    same = {"spp 8 frame": torch.equal(frame, plain), "spp 1 colour": torch.equal(col, pcol),
+            "spp 1 counters": torch.equal(st[1], pst[1]),
+            "spp 1 primary ids": torch.equal(idx.long(), pidx)}
+    print(f"  room5 {w}x{h} with u8/256 200x200 TGA textures (u8 form), K4 against the plain "
+          f"tracer, bitwise: {same}; spp 8 max_abs_err {(frame - plain).abs().max().item():.3g}")
+    check(all(same.values()), f"K4 with TGA textures not bitwise: {same}")
 
 
 def launch_ms(fn, n=20, reps=5):
@@ -1076,6 +1263,37 @@ def launch_ms(fn, n=20, reps=5):
         end.synchronize()
         times.append(start.elapsed_time(end) / n)
     return statistics.median(times), times
+
+
+def device_ms(fn, name=None, n=20):
+    """Device time per call of ``fn`` over ``n`` calls under torch.profiler
+    (one warm-up call first): the summed device time of the kernels whose
+    name holds ``name`` (every kernel when None). For a kernel of a few
+    microseconds this is its own time, where back-to-back launches time the
+    host's enqueue of the call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    # The profiler has come back without some or all of a session's kernel
+    # events after many sessions in one process. A session counts only when
+    # every kernel it names ran a whole number of times per call; else it
+    # is made again, up to 3 times.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total, whole = 0.0, True
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+            if t > 0 and (name is None or name in e.key):
+                total += t
+                whole = whole and e.count % n == 0
+        if total > 0 and whole:
+            return total / n / 1e3
+    raise RuntimeError(f"check failed: profiler: no whole session for {name or 'any kernel'}")
 
 
 def device_profile(fn, reps=5):
@@ -1183,7 +1401,7 @@ def w5_cell(scene, w, h, cfg):
             "img": img}
 
 
-def w5_summary(cells, k5, errs, main_launches, frac, diag):
+def w5_summary(cells, k5, errs, main_launches, frac, diag, k5_shares):
     """The adaptive A/B lines and the K4 and K5 entries of the kernels line."""
     for size in W5_SIZES:
         key = f"{size[0]}x{size[1]}"
@@ -1222,7 +1440,11 @@ def w5_summary(cells, k5, errs, main_launches, frac, diag):
         "replaces": "se195_raytracer_tpu/kernels/texel_kernel.py:116",
         "launches": main_launches["K5"],
         **{k: k5[k] for k in ("max_abs_err", "mismatch_frac", "ms", "plain_ms", "bound_ms",
-                              "bound_by", "library_ms", "lanes", "atlas_bytes")},
+                              "bound_by", "library_ms", "lanes", "headline", "lane_sets",
+                              "stream_dead_ms")},
+        "fetches_per_render": {"800x600 spp 1": int(k5["lane_sets"][f"u8 {K5_STREAM}"]["lanes"]),
+                               f"800x600 spp {W5_SPP}": k5_shares["u8"]["fetches"]},
+        "share_of_k4": k5_shares,
     }
     return k4, k5e
 
@@ -1257,8 +1479,8 @@ def main() -> int:
     t = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         k5 = k5_section(tmp)
-        errs, main_launches, cells, frac, diag = k4_section(tmp)
-    kernels.extend(w5_summary(cells, k5, errs, main_launches, frac, diag))
+        errs, main_launches, cells, frac, diag, k5_shares = k4_section(tmp)
+    kernels.extend(w5_summary(cells, k5, errs, main_launches, frac, diag, k5_shares))
     print(f"  (K4/K5 phases {time.perf_counter() - t:.1f} s)")
 
     print(card)

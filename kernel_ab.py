@@ -3,27 +3,39 @@ commit, on one GPU, in one process.
 
     mkdir -p _archive/parent
     for f in pt_kernel whitted_kernel whitted5_kernel; do
-      git show 42f64b8:se195_raytracer_tpu_torch/kernels/csrc/$f.cu > _archive/parent/$f.cu
+      git show 0518b77:se195_raytracer_tpu_torch/kernels/csrc/$f.cu > _archive/parent/$f.cu
     done
-    python3 kernel_ab.py [--old _archive/parent] [--splits K2 K3 K4]
+    python3 kernel_ab.py [--old _archive/parent] [--old-args flat|units]
+                         [--kernels K1 ... K5] [--splits K2 K3 K4]
 
 Builds the current sources (``kernels/_build.py``) and the old ones (same
 nvcc flags, into ``<old>/_build/``), prints each kernel's ptxas registers,
 stack frame and spills, then times each kernel in turns (old, new, new,
 old; CUDA events around back-to-back launches, median of 5 after a
-warm-up) at the shapes of
-chip_smoke.py's main paths: K3 on the Whitted room frame (800x600, 3x3,
-depth 5), K2 on complex783 512x512 x 8 spp, K1 on Cornell 512x512 x 8 spp
-(PT/mwc and DL/mwc timed; PT/counter compared too), K4 on room5 800x600
-spp 8. Old and new outputs are compared bitwise (K2 also cull on against
-cull off). The old sources run through the current wrappers, so they must
-have the current C entry points, as the parent commit's do.
+warm-up) at the shapes of chip_smoke.py's main paths: K5 alone on its
+three lane sets (2^18 and 2^22 random lanes, K4's own fetches at room5
+800x600 spp 1) in both texture forms (the procedural room5 textures and
+u8/256 200x200 TGA ones), K4 on room5 800x600 spp 8 with each of the two
+texture sets, K1 on Cornell 512x512 x 8 spp (PT/mwc and DL/mwc timed;
+PT/counter compared too), K2 on complex783 512x512 x 8 spp, K3 on the
+Whitted room frame (800x600, 3x3, depth 5). Old and new outputs are
+compared bitwise (K2 also cull on against cull off).
+
+The old sources run through the current wrappers, so their C entry
+points must take the current arguments, with one exception made
+explicit: sources from before K5's texel units (the parent commit
+0518b77 and earlier) take the [texels, 3] float32 atlas and its [T, 3]
+table where the current K4 and K5 entries take the texel units and their
+[T, 4] table. ``--old-args flat`` (the default, for the parent) hands them
+those (``FlatAtlasLib``); ``--old-args units`` runs a copy of the current
+sources as it is.
 
 ``--old`` defaults to ``_archive/parent`` (git-ignored), which the lines
 above fill with the parent commit's sources; without it only the current
 sources are built. Any other copy of the three sources is A/B'd the same
 way: a variant of a kernel (another block size, say) is a copy with the
-change made by hand, run with ``--old`` pointing at it. ``--splits``
+change made by hand, run with ``--old`` pointing at it and ``--old-args
+units``. ``--kernels`` limits the A/B to the named kernels. ``--splits``
 prints chip_smoke.py's split lines of the named kernels, for both versions
 when there is an old one. Needs a CUDA device; imports nothing of JAX.
 """
@@ -33,9 +45,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import statistics
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import chip_smoke as cs
@@ -82,6 +96,36 @@ def finish_build(procs):
                 getattr(lib, fn).argtypes = getattr(current[name], fn).argtypes
                 getattr(lib, fn).restype = ctypes.c_int
     return libs, logs
+
+
+class FlatAtlasLib:
+    """The K4 and K5 entry points of sources from before the texel units,
+    with their own argument list: argument 4 of ``whitted5_trace_cuda`` and
+    argument 0 of ``texel_fetch_cuda`` take the [texels, 3] float32 atlas of
+    ``textures`` and the next one its [T, 3] (texel offset, th, tw) table
+    (``texel_kernel.pack_texel_atlas``), where the current wrappers pass the
+    texel units and their [T, 4] table. Every other argument is the same."""
+
+    def __init__(self, lib, textures):
+        from se195_raytracer_tpu_torch.kernels import texel_kernel as tk
+
+        self.lib = lib
+        self.atlas, self.textab = tk.pack_texel_atlas(textures)
+
+    def whitted5_trace_cuda(self, *args):
+        args = list(args)
+        args[4:6] = [self.atlas.data_ptr(), self.textab.data_ptr()]
+        return self.lib.whitted5_trace_cuda(*args)
+
+    def texel_fetch_cuda(self, *args):
+        return self.lib.texel_fetch_cuda(self.atlas.data_ptr(), self.textab.data_ptr(),
+                                         *args[2:])
+
+
+def k45_lib(lib, textures, old_args):
+    """The old whitted5_kernel library as the current wrappers call it, for a
+    scene with ``textures``."""
+    return FlatAtlasLib(lib, textures) if old_args == "flat" else lib
 
 
 @contextlib.contextmanager
@@ -176,29 +220,75 @@ def ab_k1(lib, timed=(("pt", "mwc"), ("dl", "mwc"))):
             turns(label, old, new, timer=lambda fn: cs.launch_ms(fn, n=20))
 
 
-def ab_k4(lib):
+def ab_k5(lib, old_args, tmp):
+    """K5 alone, old against new, on each lane set in each texture form."""
+    import torch
+
+    from se195_raytracer_tpu_torch.kernels import texel_kernel as tk
+
+    atlases = cs.k5_atlases(tmp)
+    w, h = cs.W5_SIZES[-1]
+    sets = cs.k5_lane_sets(cs.k4_texel_stream(atlases["f32"], w, h))
+    for form, scene in atlases.items():
+        layout = tk.pack_texel_units(scene.textures)
+        flat, textab = tk.pack_texel_atlas(scene.textures)
+        old_lib = k45_lib(lib, scene.textures, old_args)
+        for label, (tex, u, v) in sets.items():
+            live = torch.ones_like(u, dtype=torch.bool)
+
+            def new(tex=tex, u=u, v=v, live=live):
+                return tk.texel_fetch_cuda(flat, textab, tex, u, v, live, layout=layout)
+
+            def old(new=new):
+                with using(tk, old_lib, "kernel_lib"):
+                    return new()
+
+            tag = f"K5 {form} {label} ({u.shape[0]} lanes)"
+            print(f"  {tag}: new bitwise equal to old: {equal([new()], [old()])}")
+            turns(f"{tag}, device time", old, new,
+                  timer=lambda fn: (cs.device_ms(fn, "texel_fetch_kernel"), None))
+            turns(f"{tag}, back-to-back launches", old, new,
+                  timer=lambda fn: cs.launch_ms(fn, n=20))
+
+
+def ab_k4(lib, old_args, tmp):
+    """K4 at room5 800x600 spp 8, old against new, with each texture set
+    (and the 4-ray render on the procedural one), and K5's share of each:
+    K4 against the scene's twin without texture ids, which fetches
+    nothing, through the same library."""
     from se195_raytracer_tpu_torch.kernels import whitted5_kernel as w5k
 
-    spp8, four, label = k4_calls()
+    for form, scene in cs.k5_atlases(tmp).items():
+        spp8, four, label = k4_calls(scene)
+        twin = dataclasses.replace(scene, tex_id=tuple(-1 for _ in scene.tex_id))
+        bare = k4_calls(twin)[0]
+        old_lib = k45_lib(lib, scene.textures, old_args)
 
-    def old(fn):
-        with using(w5k, lib, "kernel_lib"):
-            return fn()
+        def old(fn, old_lib=old_lib):
+            with using(w5k, old_lib, "kernel_lib"):
+                return fn()
 
-    print(f"  {label}: new bitwise equal to old: colour and primary ids "
-          f"{equal(spp8(), old(spp8))}; 4-ray colour {equal(four(), old(four))}")
-    turns(label, lambda: old(spp8), spp8, timer=lambda fn: cs.launch_ms(fn, n=5))
+        line = f"  {label} ({form} textures): new bitwise equal to old: colour and primary ids " \
+               f"{equal(spp8(), old(spp8))}"
+        if form == "f32":
+            line += f"; 4-ray colour {equal(four(), old(four))}"
+        print(line)
+        timer = lambda fn: cs.launch_ms(fn, n=5)  # noqa: E731
+        with_old, with_new = turns(f"{label} ({form} textures)", lambda: old(spp8), spp8,
+                                   timer=timer)
+        bare_old, bare_new = turns(f"{label} (no texture ids)", lambda: old(bare), bare,
+                                   timer=timer)
+        print(f"  K5's share of K4 ({form} textures): old {1 - bare_old / with_old:.2%}, new "
+              f"{1 - bare_new / with_new:.2%}")
 
 
-def k4_calls():
-    """(spp-8 call, 4-ray call, label): K4 at room5 800x600 through
-    whitted5_trace_cuda, the spp-8 one with the primary ids."""
+def k4_calls(scene):
+    """(spp-8 call, 4-ray call, label): K4 on ``scene`` at room5 800x600
+    through whitted5_trace_cuda, the spp-8 one with the primary ids."""
     from se195_raytracer_tpu_torch.kernels import whitted5_kernel as w5k
     from se195_raytracer_tpu_torch.models import whitted5 as P
-    from se195_raytracer_tpu_torch.scenes import whitted5_scenes as S
 
     w, h = cs.W5_SIZES[-1]
-    scene = S.WHITTED5_SCENES["room5"]("cuda")
     o, d = P._cached_rays5(w, h, (0.5, 0.5), "cuda")
     o4, d4 = P._cached_rays5_4(w, h, "cuda")
     state = P._cached_state5(w * h, cs.W5_SEED, "cuda")
@@ -218,6 +308,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", type=Path, default=Path("_archive/parent"),
                     help="directory with the old .cu sources (default: %(default)s)")
+    ap.add_argument("--old-args", choices=("flat", "units"), default="flat",
+                    help="the old K4/K5 entries' texture arguments: flat (the parent's "
+                         "[texels, 3] atlas) or units (a copy of the current sources)")
+    ap.add_argument("--kernels", nargs="*", choices=("K1", "K2", "K3", "K4", "K5"),
+                    default=("K1", "K2", "K3", "K4", "K5"), help="A/B these kernels")
     ap.add_argument("--splits", nargs="*", choices=("K2", "K3", "K4"), default=(),
                     help="print these kernels' split lines")
     args = ap.parse_args()
@@ -255,7 +350,9 @@ def main() -> int:
             if tag == "old":
                 stack.enter_context(using(wk, old["whitted_kernel"]))
                 stack.enter_context(using(ptk, old["pt_kernel"]))
-                stack.enter_context(using(w5k, old["whitted5_kernel"], "kernel_lib"))
+                room5 = S.WHITTED5_SCENES["room5"]("cuda")
+                stack.enter_context(using(w5k, k45_lib(old["whitted5_kernel"], room5.textures,
+                                                       args.old_args), "kernel_lib"))
             if "K3" in args.splits:
                 cs.k3_split(WHITTED_SCENES["room"]("cuda"), w, h, k3_works)
             if "K2" in args.splits:
@@ -265,9 +362,15 @@ def main() -> int:
                 cs.k4_split(S.WHITTED5_SCENES["room5"]("cuda"), w5, h5, k4_works)
     if old:
         print("[A/B] old, new, new, old")
-        for fn, source in ((ab_k4, "whitted5_kernel"), (ab_k1, "pt_kernel"),
-                           (ab_k2, "pt_kernel"), (ab_k3, "whitted_kernel")):
-            fn(old[source])
+        with tempfile.TemporaryDirectory() as tmp:
+            cs.write_u8_textures(tmp)
+            for kernel, fn in (("K5", ab_k5), ("K4", ab_k4)):
+                if kernel in args.kernels:
+                    fn(old["whitted5_kernel"], args.old_args, tmp)
+        for kernel, fn, source in (("K1", ab_k1, "pt_kernel"), ("K2", ab_k2, "pt_kernel"),
+                                   ("K3", ab_k3, "whitted_kernel")):
+            if kernel in args.kernels:
+                fn(old[source])
     print(f"card: {cs.card_line()}")
     return 0
 

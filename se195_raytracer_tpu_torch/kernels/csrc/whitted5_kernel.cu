@@ -8,8 +8,8 @@
 // kernels/texel_kernel.py _make_texel_kernel (_texel_pallas,
 // texel_fetch_mxu): GetTexel's bilinear fetch, which the TPU computes as
 // one-hot matrix products because it has no per-lane gather. Here it is a
-// plain gather, `texel` below, called by K4 at every textured hit; the
-// `texel_fetch` entry exposes it alone for its own check.
+// gather, `texel` below, called by K4 at every textured hit; the
+// `texel_fetch` entry exposes it alone for its own check and its timing.
 //
 // K4 computes, per primary ray and pass, the reflect/refract tree of
 // models/whitted5.whitted5_trace (depth <= 5): the nearest hit over spheres,
@@ -24,8 +24,8 @@
 // test is six IEEE divisions and 18 compares, and the shadow sweeps were
 // most of the work (5 per live node on room5, each testing all 5 boxes).
 // Device memory sees the rays and RNG state in, the [R, 3] color out, and
-// four texel reads per textured hit (the atlas stays in L2: 2 x 64 x 64 x
-// 12 B procedural, 960,000 B for the 200 x 200 assets).
+// one texel fetch per textured hit (the texel units stay in L2: 16 B a
+// texel, 2 x 64 x 64 procedural, 2 x 200 x 200 for the 200 x 200 assets).
 // What the design does about it:
 //   * one thread per primary ray walks its whole tree depth first, with a
 //     per-thread stack of pending refraction children: no [K*R] node buffers
@@ -48,10 +48,28 @@
 //     (a box's corners and widened corners made once per block), and the
 //     sphere, plane, box and light index lists sit in shared memory.
 //
+// K5 alone is a gather of 25 B of useful data per lane from an atlas in L2.
+// Read from the [texels, 3] float atlas it was 12 scalar loads over two
+// rows (2-6 sectors) and six integer divisions by a runtime size; sm_90
+// has no divide instruction, so each is some 20 instructions. The design
+// reads 16-byte texel units built once per scene
+// (texel_kernel.pack_texel_units), in one of two forms chosen per texture
+// by its data and named in its table row:
+//   * where every texel is k/256 (the reference's TGA assets), unit (v, u)
+//     holds the texel's bilinear quad, its four corners with the wrap baked
+//     in, as 12 bytes of u8: a fetch is one aligned 128-bit load, and
+//     k * (1/256) gives each corner's float bit for bit;
+//   * any other texture keeps its texels as float32 RGBA: four 128-bit
+//     loads, none across a sector, u2 and v2 wrapped by a compare. (A
+//     64-byte float quad, three loads in one segment, took 1.26x the time
+//     on random lanes in four times the memory.)
+// Either way u1 and v1 take one `%` and a conditional add each.
+//
 // Rounding: built with -fmad=false, so every a * b + c rounds twice, as the
 // plain version's separate tensor ops do; the expressions keep its order.
 // x^20 is the multiply chain of the plain version; Beer's law uses expf
-// (never __expf); the texel wrap is a floor modulo, as torch's and JAX's `%`.
+// (never __expf); the texel wrap is a floor modulo, as torch's and JAX's `%`,
+// and the texel blend keeps GetTexel's order, c1 w1 + c2 w2 + c3 w3 + c4 w4.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC -fmad=false. Never --use_fast_math.
@@ -81,6 +99,9 @@ constexpr uint32_t kPassBudget = 1024u;  // PASS_DRAW_BUDGET
 
 enum { kSphere = 0, kPlane = 1, kBox = 2 };
 
+// Texture forms of the texel units (TEX_F32, TEX_U8 in texel_kernel.py).
+enum { kTexF32 = 0, kTexU8 = 1 };
+
 // pack_whitted5_scene rows.
 enum {
   R_CX, R_CY, R_CZ, R_RAD, R_NX, R_NY, R_NZ, R_DEPTH, R_BPX, R_BPY, R_BPZ,
@@ -106,8 +127,8 @@ struct Scene {
   const int* type;     // [n]
   const int* light;    // [n] 1 for a light
   const int* tex;      // [n] texture id or -1
-  const int* textab;   // [n_tex, 3] (texel offset, th, tw)
-  const float* atlas;  // [texels, 3] in device memory
+  const int* textab;   // [n_tex, 4] (texel offset, th, tw, form)
+  const uint4* units;  // the texel units, in device memory
   const float4* geo;   // [n, kGeo]
   // Primitive indices by type, ascending, and the lights.
   const int* spheres;
@@ -119,16 +140,27 @@ struct Scene {
   __device__ float at(int row, int j) const { return t[row * n + j]; }
 };
 
+// Floor modulo for m > 0 with one division: C's truncating remainder, then
+// m added where it is negative. The same integer as ((a % m) + m) % m for
+// every int a (texel_kernel.floor_mod mirrors it).
 __device__ __forceinline__ int floor_mod(int a, int m) {
-  return ((a % m) + m) % m;
+  const int r = a % m;
+  return r < 0 ? r + m : r;
+}
+
+// Corner k (byte k) of a u8 quad channel word, as the float k/256.
+__device__ __forceinline__ float u8_corner(uint32_t word, int k) {
+  return static_cast<float>((word >> (8 * k)) & 0xFFu) * (1.0f / 256.0f);
 }
 
 // K5: Texture::GetTexel (scene.cpp:81-106) with its quirks, the arithmetic of
 // models/whitted5._texel: v is scaled by the width, the wrap is a floor
 // modulo, and the blend is c1 w1 + c2 w2 + c3 w3 + c4 w4, left to right.
-__device__ __forceinline__ void texel(const float* __restrict__ atlas, int off,
-                                      int th, int tw, float u, float v,
-                                      float& r, float& g, float& b) {
+// Reads a texture of th x tw texels from `units` (the texel units, see the
+// header) at texel `off`, in its form.
+__device__ __forceinline__ void texel(const uint4* __restrict__ units, int off,
+                                      int th, int tw, int form, float u,
+                                      float v, float& r, float& g, float& b) {
   const float ftw = static_cast<float>(tw);
   const float fu = (u + 1000.5f) * ftw;
   const float fv = (v + 1000.0f) * ftw;
@@ -136,23 +168,35 @@ __device__ __forceinline__ void texel(const float* __restrict__ atlas, int off,
   const float flv = floorf(fv);
   const int u1 = floor_mod(static_cast<int>(flu), tw);
   const int v1 = floor_mod(static_cast<int>(flv), th);
-  const int u2 = (u1 + 1) % tw;
-  const int v2 = (v1 + 1) % th;
   const float fracu = fu - flu;
   const float fracv = fv - flv;
   const float w1 = (1.0f - fracu) * (1.0f - fracv);
   const float w2 = fracu * (1.0f - fracv);
   const float w3 = (1.0f - fracu) * fracv;
   const float w4 = fracu * fracv;
-  const float* c1 = atlas + 3 * (off + v1 * tw + u1);
-  const float* c2 = atlas + 3 * (off + v1 * tw + u2);
-  const float* c3 = atlas + 3 * (off + v2 * tw + u1);
-  const float* c4 = atlas + 3 * (off + v2 * tw + u2);
-  r = __ldg(c1) * w1 + __ldg(c2) * w2 + __ldg(c3) * w3 + __ldg(c4) * w4;
-  g = __ldg(c1 + 1) * w1 + __ldg(c2 + 1) * w2 + __ldg(c3 + 1) * w3 +
-      __ldg(c4 + 1) * w4;
-  b = __ldg(c1 + 2) * w1 + __ldg(c2 + 2) * w2 + __ldg(c3 + 2) * w3 +
-      __ldg(c4 + 2) * w4;
+  const uint4* t = units + off;
+  float4 cr, cg, cb;  // per channel, the corners c1..c4
+  if (form == kTexU8) {
+    const uint4 q = __ldg(t + v1 * tw + u1);
+    cr = make_float4(u8_corner(q.x, 0), u8_corner(q.x, 1), u8_corner(q.x, 2),
+                     u8_corner(q.x, 3));
+    cg = make_float4(u8_corner(q.y, 0), u8_corner(q.y, 1), u8_corner(q.y, 2),
+                     u8_corner(q.y, 3));
+    cb = make_float4(u8_corner(q.z, 0), u8_corner(q.z, 1), u8_corner(q.z, 2),
+                     u8_corner(q.z, 3));
+  } else {
+    const int u2 = u1 + 1 == tw ? 0 : u1 + 1;
+    const int v2 = v1 + 1 == th ? 0 : v1 + 1;
+    const float4* f = reinterpret_cast<const float4*>(t);
+    const float4 c1 = __ldg(f + v1 * tw + u1), c2 = __ldg(f + v1 * tw + u2);
+    const float4 c3 = __ldg(f + v2 * tw + u1), c4 = __ldg(f + v2 * tw + u2);
+    cr = make_float4(c1.x, c2.x, c3.x, c4.x);
+    cg = make_float4(c1.y, c2.y, c3.y, c4.y);
+    cb = make_float4(c1.z, c2.z, c3.z, c4.z);
+  }
+  r = cr.x * w1 + cr.y * w2 + cr.z * w3 + cr.w * w4;
+  g = cg.x * w1 + cg.y * w2 + cg.z * w3 + cg.w * w4;
+  b = cb.x * w1 + cb.y * w2 + cb.z * w3 + cb.w * w4;
 }
 
 __device__ __forceinline__ float pow20(float x) {
@@ -553,8 +597,8 @@ __device__ int trace_pass(const Scene& s, const Params& p, Node root,
             vc = (px * va0 + py * va1 + pz * va2) * us1;
           }
           float tr, tg, tb;
-          texel(s.atlas, s.textab[3 * tid], s.textab[3 * tid + 1],
-                s.textab[3 * tid + 2], uc, vc, tr, tg, tb);
+          const int* row = s.textab + 4 * tid;
+          texel(s.units, row[0], row[1], row[2], row[3], uc, vc, tr, tg, tb);
           col_r = tr * m_r;
           col_g = tg * m_g;
           col_b = tb * m_b;
@@ -756,31 +800,31 @@ __device__ int trace_pass(const Scene& s, const Params& p, Node root,
 
 // Shared memory of one block, in 4-byte words: the geometry records, the
 // [kRows, n] table, the uv scales, the type, light and texture rows, the
-// texture table, the four index lists and their counts
+// texture table (four ints a texture), the four index lists and their counts
 // (whitted5_kernel.shared_memory_bytes counts the same). Above kSmemDefault
 // bytes the launch opts in to more.
 constexpr size_t kSmemDefault = 48 * 1024;
 __host__ __device__ constexpr size_t smem_words(int n, int n_tex) {
-  return static_cast<size_t>(4 * kGeo * n + (kRows + 2) * n + 3 * n + 3 * n_tex +
+  return static_cast<size_t>(4 * kGeo * n + (kRows + 2) * n + 3 * n + 4 * n_tex +
                              4 * n + 8);
 }
 
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 whitted5_kernel(const float* __restrict__ table, const float* __restrict__ uvs,
                 const int* __restrict__ aux, int n,
-                const float* __restrict__ atlas,
+                const uint4* __restrict__ units,
                 const int* __restrict__ textab, int n_tex, Params p) {
   extern __shared__ __align__(16) float smem[];
   float4* geo = reinterpret_cast<float4*>(smem);
   float* st = smem + 4 * kGeo * n;
   float* su = st + kRows * n;
   int* si = reinterpret_cast<int*>(su + 2 * n);
-  int* lists = si + 3 * n + 3 * n_tex;  // spheres, planes, boxes, lights
+  int* lists = si + 3 * n + 4 * n_tex;  // spheres, planes, boxes, lights
   int* counts = lists + 4 * n;
   for (int i = threadIdx.x; i < kRows * n; i += blockDim.x) st[i] = table[i];
   for (int i = threadIdx.x; i < 2 * n; i += blockDim.x) su[i] = uvs[i];
   for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) si[i] = aux[i];
-  for (int i = threadIdx.x; i < 3 * n_tex; i += blockDim.x)
+  for (int i = threadIdx.x; i < 4 * n_tex; i += blockDim.x)
     si[3 * n + i] = textab[i];
   __syncthreads();
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
@@ -824,7 +868,7 @@ whitted5_kernel(const float* __restrict__ table, const float* __restrict__ uvs,
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.r) return;
-  const Scene s{st, su, si, si + n, si + 2 * n, si + 3 * n, atlas, geo,
+  const Scene s{st, su, si, si + n, si + 2 * n, si + 3 * n, units, geo,
                 lists, lists + n, lists + 2 * n, lists + 3 * n,
                 n, counts[0], counts[1], counts[2], counts[3],
                 reinterpret_cast<const float*>(counts)[4]};
@@ -889,8 +933,8 @@ whitted5_kernel(const float* __restrict__ table, const float* __restrict__ uvs,
 
 // K5 alone over flat lanes: out [3, r]; dead lanes give 0.
 __global__ void __launch_bounds__(256)
-texel_fetch_kernel(const float* __restrict__ atlas,
-                   const int* __restrict__ textab,
+texel_fetch_kernel(const uint4* __restrict__ units,
+                   const int4* __restrict__ textab,
                    const int* __restrict__ tex, const float* __restrict__ u,
                    const float* __restrict__ v,
                    const unsigned char* __restrict__ live, int r,
@@ -899,9 +943,8 @@ texel_fetch_kernel(const float* __restrict__ atlas,
   if (i >= r) return;
   float cr = 0.0f, cg = 0.0f, cb = 0.0f;
   if (live[i]) {
-    const int t = tex[i];
-    texel(atlas, __ldg(textab + 3 * t), __ldg(textab + 3 * t + 1),
-          __ldg(textab + 3 * t + 2), u[i], v[i], cr, cg, cb);
+    const int4 row = __ldg(textab + tex[i]);
+    texel(units, row.x, row.y, row.z, row.w, u[i], v[i], cr, cg, cb);
   }
   out[i] = cr;
   out[r + i] = cg;
@@ -914,12 +957,15 @@ texel_fetch_kernel(const float* __restrict__ atlas,
 // after its launch (0 = cudaSuccess).
 //
 // table [27, n] (pack_whitted5_scene); uvs [2, n]; aux [3, n] int32 (type,
-// light flag, texture id); atlas [texels, 3]; textab [n_tex, 3] int32
-// (texel offset, th, tw); o, d [n_sets, r, 3] with n_sets 1 or spp; key, ctr
+// light flag, texture id); units [texels, 16] uint8 and textab [n_tex, 4]
+// int32 (texel offset, th, tw, form), both from
+// texel_kernel.pack_texel_units (in place of the [texels, 3] float32 atlas
+// and [n_tex, 3] table these arguments took before the texel units); o, d
+// [n_sets, r, 3] with n_sets 1 or spp; key, ctr
 // [r] uint32; nsamp [depth] int32 read on the host side of the call;
 // out [r, 3] = the passes' sum / div; prim_idx [r] int32 or null.
 extern "C" int whitted5_trace_cuda(const float* table, const float* uvs,
-                                   const int* aux, int n, const float* atlas,
+                                   const int* aux, int n, const void* units,
                                    const int* textab, int n_tex,
                                    const float* o, const float* d, int n_sets,
                                    int r, const uint32_t* key,
@@ -946,16 +992,19 @@ extern "C" int whitted5_trace_cuda(const float* table, const float* uvs,
   }
   const int blocks = (r + kThreads - 1) / kThreads;
   whitted5_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      table, uvs, aux, n, atlas, textab, n_tex, p);
+      table, uvs, aux, n, static_cast<const uint4*>(units), textab, n_tex, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int texel_fetch_cuda(const float* atlas, const int* textab,
+// K5 alone: units, textab as above; tex [r] int32, u, v [r] float32, live
+// [r] bool; out [3, r].
+extern "C" int texel_fetch_cuda(const void* units, const int* textab,
                                 const int* tex, const float* u,
                                 const float* v, const unsigned char* live,
                                 int r, float* out, void* stream) {
   const int blocks = (r + 255) / 256;
   texel_fetch_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      atlas, textab, tex, u, v, live, r, out);
+      static_cast<const uint4*>(units), reinterpret_cast<const int4*>(textab),
+      tex, u, v, live, r, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,7 +32,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from se195_raytracer_tpu_torch.kernels.texel_kernel import kernel_lib, pack_texel_atlas
+from se195_raytracer_tpu_torch.kernels.texel_kernel import kernel_lib, pack_texel_units
 from se195_raytracer_tpu_torch.models.whitted5 import (
     _EPS,
     AREA_SAMPLES_BY_LEVEL,
@@ -101,8 +101,8 @@ def _packed(scene: Whitted5Scene):
         if len(_PACKED) >= 8:
             _PACKED.pop(next(iter(_PACKED)))
         aux, uvs = pack_whitted5_aux(scene)
-        atlas, textab = pack_texel_atlas(scene.textures, scene.device)
-        hit = _PACKED[id(scene)] = (scene, pack_whitted5_scene(scene), aux, uvs, atlas, textab)
+        texels = pack_texel_units(scene.textures, scene.device)
+        hit = _PACKED[id(scene)] = (scene, pack_whitted5_scene(scene), aux, uvs, texels)
     return hit[1:]
 
 
@@ -231,9 +231,10 @@ def shared_memory_bytes(n: int, n_tex: int) -> int:
     """Bytes of shared memory a K4 block holds for ``n`` primitives and
     ``n_tex`` textures (``smem_words`` in csrc/whitted5_kernel.cu: four
     float4 geometry records, the [27, n] table, the uv scales, three int
-    rows and four index lists per primitive, three ints per texture, eight
-    words of counts); raises ValueError above what a block can hold."""
-    smem = 4 * (52 * n + 3 * n_tex + 8)
+    rows and four index lists per primitive, four ints per texture (its
+    ``pack_texel_units`` table row), eight words of counts); raises
+    ValueError above what a block can hold."""
+    smem = 4 * (52 * n + 4 * n_tex + 8)
     if smem > _MAX_SMEM_BYTES:
         raise ValueError(f"{n} primitives need {smem} B of shared memory (> {_MAX_SMEM_BYTES})")
     return smem
@@ -281,14 +282,14 @@ def whitted5_trace_cuda(
         raise ValueError(f"trace_depth {trace_depth} outside 1..{MAX_TRACE_DEPTH}")
     n = scene.num_prims
     shared_memory_bytes(n, len(scene.textures))
-    table, aux, uvs, atlas, textab = _packed(scene)
+    table, aux, uvs, (units, textab) = _packed(scene)
     o, d = o.contiguous(), d.contiguous()
     key, ctr = (s.to(torch.uint32).contiguous() for s in state)
     nsamp = samples_per_level(trace_depth, area_samples_by_level)
     out = torch.empty((r, 3), dtype=torch.float32, device=dev)
     idx = torch.empty((r,), dtype=torch.int32, device=dev) if return_primary_idx else None
     err = kernel_lib().whitted5_trace_cuda(
-        table.data_ptr(), uvs.data_ptr(), aux.data_ptr(), n, atlas.data_ptr(),
+        table.data_ptr(), uvs.data_ptr(), aux.data_ptr(), n, units.data_ptr(),
         textab.data_ptr(), textab.shape[0], o.data_ptr(), d.data_ptr(), n_sets, r,
         key.data_ptr(), ctr.data_ptr(), spp, trace_depth,
         (ctypes.c_int * len(nsamp))(*nsamp), float(spp if mean else 1),

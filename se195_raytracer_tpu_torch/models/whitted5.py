@@ -330,6 +330,21 @@ def get_color(scene: Whitted5Scene, idx: torch.Tensor, point: torch.Tensor):
     return out
 
 
+def _texel_lanes(scene: Whitted5Scene, idx: torch.Tensor, point: torch.Tensor, lit: torch.Tensor):
+    """(texture id, ucoord, vcoord) of the ``lit`` lanes whose primitive
+    ``idx`` is textured, in lane order: the fetches GetColor makes there."""
+    tex_of = torch.tensor(scene.tex_id, dtype=torch.int32, device=point.device)[idx]
+    m = lit & (tex_of >= 0)
+    sel_u = torch.zeros(point.shape[0], dtype=torch.float32, device=point.device)
+    sel_v = torch.zeros_like(sel_u)
+    for j in range(scene.num_prims):
+        if scene.tex_id[j] >= 0:
+            ucoord, vcoord = _prim_uv(scene, j, point)
+            sel_u = torch.where(idx == j, ucoord, sel_u)
+            sel_v = torch.where(idx == j, vcoord, sel_v)
+    return tex_of[m], sel_u[m], sel_v[m]
+
+
 def calc_shade(scene: Whitted5Scene, light: int, point: torch.Tensor, state: MWCState,
                draw_mask: torch.Tensor, n_samples: int, on_sweep: Optional[Callable] = None):
     """CalcShade (raytracer.cpp:371-406): (shade [R], L [R, 3], new state).
@@ -462,6 +477,7 @@ def whitted5_trace(
     return_primary_idx: bool = False,
     work: Optional[dict] = None,
     on_sweep: Optional[Callable] = None,
+    on_texel: Optional[Callable] = None,
 ):
     """The binary reflect/refract tree of depth ``trace_depth`` (depth starts
     at 1 as in RenderRay, raytracer.cpp:457-474), levelwise: the 2^(l-1)
@@ -479,7 +495,10 @@ def whitted5_trace(
     nodes on a textured primitive: one bilinear fetch each) and ``glossy``
     (disc samples drawn), and ``shadow_sweeps_used`` (``_shade_node``).
     ``on_sweep`` is passed to ``_shade_node``: it sees
-    every nearest sweep and shadow ray of the live nodes.
+    every nearest sweep and shadow ray of the live nodes. ``on_texel(tex,
+    u, v)`` sees, level by level, the texel fetches: the texture id and
+    coordinates of every lit node on a textured primitive, node-major and
+    in ray order within a node (the ``texels`` that ``work`` counts).
 
     Returns (color [R, 3], advanced state), plus the level-1 hit ids ([R],
     -1 on a miss) when ``return_primary_idx``."""
@@ -513,6 +532,8 @@ def whitted5_trace(
         if work is not None:
             _count_work(work, scene, valid & hit & ~is_light[safe], valid, safe,
                         n_samp[level - 1])
+        if on_texel is not None:
+            on_texel(*_texel_lanes(scene, safe, point, valid & hit & ~is_light[safe]))
         # Beer's law completes at this node with its own travel distance
         # (raytracer.cpp:353-356); beer == 0 means no absorption.
         w_eff = weight * torch.exp(beer * (-dist)[:, None])
@@ -591,20 +612,22 @@ def whitted5_trace(
 def trace_passes(scene: Whitted5Scene, o: torch.Tensor, d: torch.Tensor, state: MWCState, *,
                  spp: int = 1, mean: bool = True, trace_depth: int = TRACEDEPTH5,
                  area_samples_by_level=AREA_SAMPLES_BY_LEVEL, return_primary_idx: bool = False,
-                 work: Optional[dict] = None, on_sweep: Optional[Callable] = None):
+                 work: Optional[dict] = None, on_sweep: Optional[Callable] = None,
+                 on_texel: Optional[Callable] = None):
     """``spp`` successive passes of ``whitted5_trace``, summed (then divided
     by spp when ``mean``). ``o``/``d`` are [R, 3] (every pass traces the same
     rays) or [spp, R, 3] (pass p traces set p). Returns (color [R, 3], state
     advanced by spp passes), plus the first pass's level-1 hit ids when
-    ``return_primary_idx``. ``work`` and ``on_sweep`` are passed to
-    ``whitted5_trace``. This is K4's plain version."""
+    ``return_primary_idx``. ``work``, ``on_sweep`` and ``on_texel`` are
+    passed to ``whitted5_trace``. This is K4's plain version."""
     if o.dim() == 2:
         o, d = o[None], d[None]
     acc, idx, st = None, None, state
     for p in range(spp):
         op, dp = o[p % o.shape[0]], d[p % d.shape[0]]
         col, st, pidx = whitted5_trace(scene, op, dp, st, trace_depth, area_samples_by_level,
-                                       return_primary_idx=True, work=work, on_sweep=on_sweep)
+                                       return_primary_idx=True, work=work, on_sweep=on_sweep,
+                                       on_texel=on_texel)
         idx = pidx if idx is None else idx
         acc = col if acc is None else acc + col
     if mean:
