@@ -51,8 +51,28 @@
     4 x two shadow-sample tables at 800x600 spp 1); K5's share of K4 at
     room5 800x600 spp 8 on both texture sets (K4 against a twin scene
     without texture ids, in turns);
-13. prints one JSON line per kernel (``{"kernels": [...]}``, K1-K5) and,
-    last, ``{"ok": true, "device": {...}}``.
+G. last, the differentiable path (driver/optimize.py), Cornell 512x512, PT, mwc,
+   seed 0: ``render_differentiable`` at spp 2 and 8 is one K1 launch and no
+   plain ``radiance`` (a counting wrapper this script installs), its image
+   under K1's contract against the plain primal, its gradients (L2 to the
+   start scene's image, every leaf) finite and equal to the plain path's
+   VJP of the same cotangent, the backward launching no kernel; the
+   counter RNG's forward against its recompute; K2 on ``complex`` 128x128
+   (one K2 launch, finite gradients); the six pixel-gradient checks of
+   the gradient benchmark at 512x512 spp 2 (JVP against central finite
+   differences, hard and soft 0.5, bounded but for the hard light centre);
+   10 inverse-rendering steps hard and soft; forward+backward ms per step
+   at spp 2 and 8, hard and soft, with the K1 / recompute / VJP split, the
+   idle share and peak memory, and an spp-2 step's peak memory with remat
+   on and off; whitted5 soft (room5 320x240, the plain tracer) and its
+   light-position gradient;
+13. prints the grad phase's numbers (``{"grad": {...}}``), one JSON line per
+    kernel (``{"kernels": [...]}``, K1-K5, K1 and K2 with their launches
+    per differentiable forward) and, last, ``{"ok": true, "device":
+    {...}}``.
+
+``--only-grad`` builds the kernels and runs K1's first check and the grad
+phase only.
 
 Any failed check exits non-zero before the last line. Imports nothing of
 JAX or of the JAX package. Exits non-zero without a result when no CUDA
@@ -133,6 +153,31 @@ W5_SEED = 3
 # components outside isclose(1e-3, 1e-3), the image mean, the primary hits.
 K4_P99, K4_BAD, K4_MEAN_RTOL, K4_IDX = 1e-4, 1e-3, 1e-4, 0.9999
 K4_DET_TOL = 1e-5
+
+# The differentiable path (the grad phase): Cornell 512x512, PT, mwc, seed 0,
+# max_depth 7, forward on K1 (K2 on complex at GRAD_K2 = (w, h, spp)), the
+# backward the plain path's autograd. Steps at GRAD_SPPS; the relaxation at
+# GRAD_SOFT; GRAD_STEPS inverse-rendering steps each hard and soft with the
+# gradient benchmark's optimizer (GRAD_LR, geometry at GRAD_GEOM_MULT x, a
+# cosine decay to GRAD_ALPHA); whitted5 soft on room5 at W5_GRAD.
+GRAD_SPPS = (2, 8)
+GRAD_SOFT = 0.5
+GRAD_K2 = (128, 128, 1)
+GRAD_STEPS = 10
+GRAD_LR, GRAD_ALPHA = 0.15, 0.25
+GRAD_GEOM_MULT = {"hard": 10.0, "soft": 3.0}
+W5_GRAD = dict(width=320, height=240, spp=1, soft=0.3, light=4)
+# A gradient through the kernel-forward Function against the plain path's
+# VJP of the same cotangent: bitwise where the card's scatter-adds (the
+# backward of ``scene.center[hid]``) are run-to-run bitwise, else within
+# rtol 1e-5 and atol 1e-6 of the leaf's largest gradient.
+GRAD_RTOL, GRAD_ATOL_REL = 1e-5, 1e-6
+# The full-frame pixel checks: max |JVP - FD| as a % of the FD image's max.
+# None: printed, not checked (the hard estimator's light centre is the
+# silhouette case).
+PIXEL_BOUND_PCT = {("light emission r", False): 0.1, ("light emission r", True): 0.1,
+                   ("wall albedo g", False): 0.1, ("wall albedo g", True): 0.1,
+                   ("light center y", False): None, ("light center y", True): 2.0}
 
 
 # Diagnostic splits (one line per kernel): K3's frame at (trace_depth,
@@ -604,6 +649,397 @@ def k1_section():
         "breakdown_ms": {"seed": seed_ms, "pack": pack_ms, "kernel": kernel_ms,
                          "readback": readback_ms},
     }
+
+
+def count_plain_radiance():
+    """Install a counting wrapper around the plain ``radiance`` in every
+    module that calls it (``driver.render``, ``kernels.pt_kernel``) and in
+    ``models.smallpt``. Returns (calls dict, undo)."""
+    from se195_raytracer_tpu_torch.driver import render as dr
+    from se195_raytracer_tpu_torch.kernels import pt_kernel as ptk
+    from se195_raytracer_tpu_torch.models import smallpt as sp
+
+    orig = sp.radiance
+    calls = {"n": 0}
+
+    def counted(*args, **kw):
+        calls["n"] += 1
+        return orig(*args, **kw)
+
+    mods = (dr, ptk, sp)
+    for m in mods:
+        m.radiance = counted
+
+    def undo():
+        for m in mods:
+            m.radiance = orig
+
+    return calls, undo
+
+
+def grad_leaves(scene, camera, names=("center", "radius", "emission", "color", "orig", "target")):
+    """(leaves by name, scene, camera): fresh copies of the named tensors
+    that require grad, in place in the scene and camera."""
+    leaves = {k: getattr(scene if k in ("center", "radius", "emission", "color") else camera,
+                         k).detach().clone().requires_grad_(True) for k in names}
+    scene = dataclasses.replace(scene, **{k: v for k, v in leaves.items()
+                                          if k in ("center", "radius", "emission", "color")})
+    camera = dataclasses.replace(camera, **{k: v for k, v in leaves.items()
+                                            if k in ("orig", "target")})
+    return leaves, scene, camera
+
+
+def contract(a, b, tag):
+    """K1's contract against the plain version: >= 97% of components within
+    isclose(2e-3), means within rtol 2e-3. Returns (max_abs_err, mismatch)."""
+    import torch
+
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    check(bool(torch.isfinite(a).all()), f"{tag}: not finite")
+    mismatch = 1.0 - torch.isclose(a, b, rtol=CLOSE_RTOL, atol=CLOSE_ATOL).double().mean().item()
+    err = (a - b).abs().max().item()
+    print(f"  {tag}: max_abs_err {err:.6g}, mismatch {mismatch:.4%}, mean {a.mean().item():.6f} "
+          f"vs plain {b.mean().item():.6f}")
+    check(mismatch <= MAX_MISMATCH, f"{tag}: {mismatch:.3%} components differ")
+    check(abs(a.mean().item() - b.mean().item()) <= MEAN_RTOL * abs(b.mean().item()),
+          f"{tag}: means differ")
+    return err, mismatch
+
+
+def compare_grads(ga, gb, tag):
+    """Each leaf's gradient: finite, bitwise or within GRAD_RTOL. Returns
+    (bitwise, max |diff| / max |gradient| over the leaves)."""
+    import torch
+
+    bitwise, rel = True, 0.0
+    for k in ga:
+        a, b = ga[k], gb[k]
+        check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()), f"{tag} {k}: not finite")
+        scale = b.abs().max().item()
+        bitwise = bitwise and bool(torch.equal(a, b))
+        rel = max(rel, (a - b).abs().max().item() / (scale or 1.0))
+        check(bool(torch.allclose(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL_REL * scale)),
+              f"{tag} {k}: gradients differ by {(a - b).abs().max().item():.3g} (scale {scale:.3g})")
+    print(f"  {tag}: bitwise {bitwise}, max |diff| / max |grad| {rel:.3g}")
+    return bitwise, rel
+
+
+def grad_step_fn(scene0, camera0, cfg, target, remat=True, kernel=True):
+    """A forward+backward step of the L2 loss over every leaf: through
+    ``render_differentiable`` (kernel forward when ``kernel`` and the hard
+    estimator) or the plain path with ``remat``."""
+    import torch
+
+    from se195_raytracer_tpu_torch.driver.optimize import _render_plain_diff, render_differentiable
+
+    leaves, scene, camera = grad_leaves(scene0, camera0)
+
+    def forward():
+        if kernel:
+            return render_differentiable(scene, camera, cfg)
+        return _render_plain_diff(scene, camera, cfg, remat=remat)
+
+    def step():
+        for t in leaves.values():
+            t.grad = None
+        torch.mean((forward() - target) ** 2).backward()
+
+    return step, forward, leaves, scene, camera
+
+
+def grad_timing(scene, camera, cfg, target, label, profiled):
+    """Forward+backward ms per step (median of 3 when ``profiled``, else of
+    2), its split and the step's peak memory, on the host clock
+    (synchronised); when ``profiled``, the card's idle share over a step."""
+    import torch
+
+    from se195_raytracer_tpu_torch.driver.optimize import _render_plain_diff
+    from se195_raytracer_tpu_torch.kernels.pt_kernel import pt_multi_pass
+
+    hard = cfg.soft_edges == 0.0
+    step, forward, leaves, s, c = grad_step_fn(scene, camera, cfg, target)
+    reps = 3 if profiled else 2
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, step_all = host_ms(step, reps=reps)
+    peak = torch.cuda.max_memory_allocated()
+    fwd_ms, _ = host_ms(forward, reps=reps)
+    out = {"step_ms": step_ms, "step_reps_ms": step_all, "forward_ms": fwd_ms,
+           "peak_mem_bytes": peak}
+    if hard:
+        # K1 alone on the forward's inputs, by CUDA events.
+        tab, cam, (s0, s1, acc), _, kw = pass_inputs(SCENE, cfg.width, cfg.height, "pt", "mwc",
+                                                     "cuda", seed=cfg.seed)
+        out["k1_ms"], _ = median_ms(lambda: pt_multi_pass(tab, cam, 0, s0, s1, acc,
+                                                          num_samples=cfg.spp, **kw), reps=reps)
+        out["recompute_ms"], _ = host_ms(lambda: _render_plain_diff(s, c, cfg), reps=reps)
+        out["vjp_ms"] = step_ms - fwd_ms - out["recompute_ms"]
+        split = (f"forward (K1 and its host setup) {fwd_ms:.3f} ms, K1 alone "
+                 f"{out['k1_ms']:.4f} ms; recompute {out['recompute_ms']:.3f}; "
+                 f"VJP {out['vjp_ms']:.3f}")
+    else:
+        out["backward_ms"] = step_ms - fwd_ms
+        split = (f"forward (plain, relaxed, checkpointed) {fwd_ms:.3f} ms; backward (recompute "
+                 f"+ VJP) {out['backward_ms']:.3f}")
+    idle = ""
+    if profiled:
+        # The card's busy time per step from the profiler, against the
+        # step's time without it (the profiler's host overhead on thousands
+        # of small ops would otherwise count as idle); the share under the
+        # profiler beside it. Device activity only: a host trace of ~25k
+        # operators takes seconds to gather.
+        for _ in range(3):  # a session that caught no device event is made again
+            wall, busy, _ = device_profile(step, reps=1, host=False)
+            if busy > 0.0:
+                break
+        check(busy > 0.0, f"{label}: the profiler caught no device event")
+        out["busy_ms"] = busy
+        out["idle_share"] = max(0.0, 1 - busy / step_ms)
+        out["idle_share_profiled"] = max(0.0, 1 - busy / wall)
+        idle = (f"; card busy {busy:.3f} ms, idle share {out['idle_share']:.2%} "
+                f"({out['idle_share_profiled']:.2%} of the profiled wall {wall:.3f} ms)")
+    print(f"  {label}: step {step_ms:.3f} ms (reps {['%.3f' % t for t in step_all]}); {split}"
+          f"{idle}; peak memory {peak} B")
+    return out
+
+
+def grad_section(card):
+    """The grad phase: the differentiable path on the card. Returns the
+    {"grad": ...} record and the launches per differentiable forward."""
+    import torch
+
+    from se195_raytracer_tpu_torch.core.config import RenderConfig
+    from se195_raytracer_tpu_torch.driver import grad_check as G
+    from se195_raytracer_tpu_torch.driver.optimize import (
+        OptState,
+        _render_plain_diff,
+        make_inverse_step,
+        render_differentiable,
+    )
+    from se195_raytracer_tpu_torch.models import whitted5 as P
+    from se195_raytracer_tpu_torch.scenes.whitted5_scenes import room5_scene
+
+    out = {"card": card}
+    t0 = time.perf_counter()
+
+    def since():
+        return f"(+{time.perf_counter() - t0:.1f} s)"
+
+    spec = get_spec(SCENE)
+    scene0, cam0 = spec.to_scene(), spec.to_camera()
+    start = G.grad_bench_start(scene0)
+    calls, undo = count_plain_radiance()
+    try:
+        print(f"{since()} [G1] render_differentiable: {SCENE} {WIDTH}x{HEIGHT}, forward on K1, backward "
+              "the plain path's autograd")
+        fwd = {}
+        for spp in GRAD_SPPS:
+            cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=spp, seed=SEED)
+            with torch.no_grad():
+                target = render_differentiable(start, cam0, cfg)
+            leaves, scene, camera = grad_leaves(scene0, cam0)
+            zero_counters()
+            calls["n"] = 0
+            img = render_differentiable(scene, camera, cfg)
+            torch.cuda.synchronize()
+            launches, plain_calls = read_counters(), calls["n"]
+            print(f"  spp {spp} forward: launches {launches}, plain radiance calls {plain_calls}")
+            check(launches["K1"] == 1 and not any(v for k, v in launches.items() if k != "K1")
+                  and plain_calls == 0, f"spp {spp}: the forward must be one K1 launch and no "
+                  f"plain radiance, got {launches}, {plain_calls}")
+            with torch.no_grad():
+                primal = _render_plain_diff(scene, camera, cfg)
+            err, mismatch = contract(img, primal, f"spp {spp} forward against the plain primal")
+            cot = {}
+            img.register_hook(lambda g: cot.setdefault("g", g))
+            loss = torch.mean((img - target) ** 2)
+            zero_counters()
+            calls["n"] = 0
+            ga = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+            torch.cuda.synchronize()
+            bwd_launches, bwd_calls = read_counters(), calls["n"]
+            check(not any(bwd_launches.values()) and bwd_calls == spp,
+                  f"spp {spp}: the backward must launch no kernel and run the plain path "
+                  f"{spp} times, got {bwd_launches}, {bwd_calls}")
+            leaves_b, scene_b, camera_b = grad_leaves(scene0, cam0)
+            plain = _render_plain_diff(scene_b, camera_b, cfg)
+            gb = dict(zip(leaves_b, torch.autograd.grad(plain, list(leaves_b.values()),
+                                                        cot["g"])))
+            bitwise, rel = compare_grads(ga, gb, f"spp {spp} Function against the plain VJP "
+                                                 "of the same cotangent")
+            repeat = route = None
+            if spp == GRAD_SPPS[0]:
+                # Run to run on the card, and the whole plain route's L2
+                # gradient (its forward image differs from K1's within K1's
+                # contract, so its cotangent does too): reported, not held.
+                again = dict(zip(leaves_b, torch.autograd.grad(
+                    _render_plain_diff(scene_b, camera_b, cfg), list(leaves_b.values()),
+                    cot["g"])))
+                repeat = all(bool(torch.equal(again[k], gb[k])) for k in gb)
+                lp = torch.mean((_render_plain_diff(scene_b, camera_b, cfg) - target) ** 2)
+                gl = torch.autograd.grad(lp, list(leaves_b.values()))
+                route = max((a - b).abs().max().item() / (b.abs().max().item() or 1.0)
+                            for a, b in zip(ga.values(), gl))
+                print(f"  spp {spp} plain VJP run twice: bitwise {repeat}; the plain route's L2 "
+                      f"gradient against K1's route: max |diff| / max |grad| {route:.3g}")
+            fwd[f"spp{spp}"] = {
+                "k1_launches_per_forward": launches["K1"], "plain_radiance_in_forward": plain_calls,
+                "plain_radiance_in_backward": bwd_calls, "launches_in_backward": bwd_launches,
+                "forward_max_abs_err": err, "forward_mismatch": mismatch,
+                "grad_bitwise": bitwise, "grad_max_rel_diff": rel, "plain_vjp_repeat_bitwise":
+                repeat, "l2_route_max_rel_diff": route,
+                "grad_max_abs": {k: v.abs().max().item() for k, v in ga.items()}}
+        out["forward_backward"] = fwd
+
+        print(f"{since()} [G2] counter RNG: the kernel forward and the plain recompute draw one stream")
+        cfg_c = RenderConfig(width=WIDTH, height=HEIGHT, spp=2, seed=SEED, rng="counter")
+        with torch.no_grad():
+            img = render_differentiable(scene0, cam0, cfg_c)
+            primal = _render_plain_diff(scene0, cam0, cfg_c)
+        err, mismatch = contract(img, primal, "counter spp 2 forward against the plain primal")
+        out["counter"] = {"max_abs_err": err, "mismatch": mismatch}
+
+        w2, h2, spp2 = GRAD_K2
+        print(f"{since()} [G3] K2 on the path: {COMPLEX} {w2}x{h2} spp {spp2}")
+        cspec = get_spec(COMPLEX)
+        cfg2 = RenderConfig(width=w2, height=h2, spp=spp2, seed=SEED)
+        leaves, scene, camera = grad_leaves(cspec.to_scene(), cspec.to_camera(),
+                                            ("center", "color"))
+        zero_counters()
+        calls["n"] = 0
+        img = render_differentiable(scene, camera, cfg2)
+        torch.cuda.synchronize()
+        launches, plain_calls = read_counters(), calls["n"]
+        check(launches["K2"] == 1 and not any(v for k, v in launches.items() if k != "K2")
+              and plain_calls == 0, f"complex forward: {launches}, plain {plain_calls}")
+        t = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        g = torch.autograd.grad(torch.mean(img ** 2), list(leaves.values()))
+        torch.cuda.synchronize()
+        k2_bwd_ms = (time.perf_counter() - t) * 1e3
+        k2_peak = torch.cuda.max_memory_allocated()
+        finite = all(bool(torch.isfinite(x).all()) for x in g)
+        nonzero = all(x.abs().max().item() > 0 for x in g)
+        print(f"  forward launches {launches}, plain radiance calls {plain_calls}; backward "
+              f"{k2_bwd_ms:.1f} ms, peak memory {k2_peak} B; centre and colour gradients finite "
+              f"{finite}, nonzero {nonzero}")
+        check(finite and nonzero, "complex gradients not finite or zero")
+        out["k2"] = {"k2_launches_per_forward": launches["K2"], "k1_launches": launches["K1"],
+                     "backward_ms": k2_bwd_ms, "peak_mem_bytes": k2_peak}
+    finally:
+        undo()
+
+    print(f"{since()} [G4] pixel gradients against central finite differences: {SCENE} "
+          f"{WIDTH}x{HEIGHT} spp 2 seed {SEED}")
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=2, seed=SEED)
+    checks = []
+    for label, param, idx, eps in G.PIXEL_CHECKS:
+        for soft in (0.0, GRAD_SOFT):
+            mx, p99, scale, jvp = G.pixel_grad_check(scene0, cam0, cfg, param, idx, eps, soft)
+            pct = 100.0 * mx / scale
+            limit = PIXEL_BOUND_PCT[(label, soft > 0.0)]
+            print(f"  {label} {list(idx)} eps {eps} soft {soft}: max_abs_err {mx:.6g}, "
+                  f"p99_abs_err {p99:.6g}, fd_scale {scale:.6g}, {pct:.4f}% of scale"
+                  + ("" if limit is None else f" (bound {limit}%)"))
+            check(bool(torch.isfinite(jvp).all()), f"{label} soft {soft}: JVP not finite")
+            if limit is not None:
+                check(pct <= limit, f"{label} soft {soft}: {pct:.3f}% of scale > {limit}%")
+            checks.append({"param": label, "index": list(idx), "eps": eps, "soft_edges": soft,
+                           "max_abs_err": mx, "p99_abs_err": p99, "fd_scale": scale,
+                           "max_err_pct_of_scale": pct, "bound_pct": limit})
+    out["pixel_grad_checks"] = checks
+
+    print(f"{since()} [G5] inverse rendering, {GRAD_STEPS} steps each: {SCENE} {WIDTH}x{HEIGHT} spp 2, "
+          "light moved (8, -5, 0), left wall tinted; center and color train")
+    inverse = {}
+    for mode in ("hard", "soft"):
+        cfg_m = RenderConfig(width=WIDTH, height=HEIGHT, spp=2, seed=SEED,
+                             soft_edges=0.0 if mode == "hard" else GRAD_SOFT)
+        with torch.no_grad():
+            target = render_differentiable(scene0, cam0, cfg_m)
+        mult = GRAD_GEOM_MULT[mode]
+        step = make_inverse_step(
+            target, cfg_m, lambda tr: G.GroupAdam(
+                {"geom": ([tr["center"]], GRAD_LR * mult), "mat": ([tr["color"]], GRAD_LR)},
+                GRAD_STEPS, GRAD_ALPHA),
+            lambda n: n in ("center", "color"))
+        st = OptState(start, cam0, None, None)
+        losses, secs = [], []
+        for _ in range(GRAD_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            st = step(st)
+            losses.append(float(st.loss))
+            secs.append((time.perf_counter() - t) * 1e3)
+        li = G.START_LIGHT
+        err_c = (st.scene.center[li] - scene0.center[li]).abs().max().item()
+        finite = all(math.isfinite(x) for x in losses)
+        med = statistics.median(secs[1:])
+        print(f"  {mode}: losses {['%.6g' % x for x in losses]}; median step {med:.3f} ms; light "
+              f"centre error {err_c:.4f} after {GRAD_STEPS} steps (8 at the start)")
+        check(finite and min(losses) < losses[0], f"{mode}: losses not finite or never below "
+                                                  "the first")
+        inverse[mode] = {"losses": losses, "step_ms": secs, "median_step_ms": med,
+                         "light_center_err": err_c}
+    out["inverse"] = inverse
+
+    print(f"{since()} [G6] forward+backward per step, {SCENE} {WIDTH}x{HEIGHT} ({card})")
+    timing = {}
+    for spp in GRAD_SPPS:
+        for soft in (0.0, GRAD_SOFT):
+            cfg_t = RenderConfig(width=WIDTH, height=HEIGHT, spp=spp, seed=SEED, soft_edges=soft)
+            with torch.no_grad():
+                target = render_differentiable(start, cam0, dataclasses.replace(cfg_t,
+                                                                                soft_edges=0.0))
+            key = f"spp{spp} {'hard' if soft == 0.0 else f'soft {soft}'}"
+            timing[key] = grad_timing(scene0, cam0, cfg_t, target, key,
+                                      profiled=spp == GRAD_SPPS[0])
+    cfg_m = RenderConfig(width=WIDTH, height=HEIGHT, spp=2, seed=SEED)
+    with torch.no_grad():
+        target = render_differentiable(start, cam0, cfg_m)
+    memory = {}
+    for remat in (True, False):
+        step = grad_step_fn(scene0, cam0, cfg_m, target, remat=remat, kernel=False)[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        memory[f"remat {'on' if remat else 'off'}"] = {
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(), "step_ms": ms}
+        torch.cuda.empty_cache()
+    print(f"  plain-route step, spp 2, peak memory: remat on "
+          f"{memory['remat on']['peak_mem_bytes']} B ({memory['remat on']['step_ms']:.3f} ms), "
+          f"off {memory['remat off']['peak_mem_bytes']} B ({memory['remat off']['step_ms']:.3f} ms)")
+    out["timing"] = timing
+    out["remat_memory"] = memory
+
+    w5 = W5_GRAD
+    print(f"{since()} [G7] whitted5 soft: room5 {w5['width']}x{w5['height']} spp {w5['spp']}, soft "
+          f"{w5['soft']}, plain tracer; d(L2)/d box_pos[{w5['light']}, 0]")
+    scene5 = room5_scene(device="cuda")
+    kw5 = dict(width=w5["width"], height=w5["height"], spp=w5["spp"], soft_edges=w5["soft"],
+               use_kernel=False)
+    with torch.no_grad():
+        target5 = P.render_whitted5(scene5, **kw5)
+    box_pos = scene5.box_pos.detach().clone()
+    box_pos[w5["light"], 0] += 1.5
+    box_pos.requires_grad_(True)
+    moved = dataclasses.replace(scene5, box_pos=box_pos)
+
+    def w5_step():
+        box_pos.grad = None
+        torch.mean((P.render_whitted5(moved, **kw5) - target5) ** 2).backward()
+
+    torch.cuda.reset_peak_memory_stats()
+    w5_ms, w5_all = host_ms(w5_step, reps=2)
+    w5_peak = torch.cuda.max_memory_allocated()
+    g5 = box_pos.grad[w5["light"], 0].item()
+    print(f"  gradient {g5:.6g} (JAX's test expects > 0); step {w5_ms:.3f} ms "
+          f"(reps {['%.3f' % t for t in w5_all]}); peak memory {w5_peak} B")
+    check(math.isfinite(g5) and g5 > 0.0, f"whitted5 soft light-position gradient {g5}")
+    out["whitted5_soft"] = {"grad": g5, "step_ms": w5_ms, "peak_mem_bytes": w5_peak}
+    return out
 
 
 def k2_section():
@@ -1296,31 +1732,42 @@ def device_ms(fn, name=None, n=20):
     raise RuntimeError(f"check failed: profiler: no whole session for {name or 'any kernel'}")
 
 
-def device_profile(fn, reps=5):
+def device_profile(fn, reps=5, host=True):
     """(wall ms, device-busy ms, K4 device ms) per call of ``fn`` over
     ``reps`` calls under torch.profiler: the card's idle share is 1 - busy /
     wall, at least 0 (the profiler's own overhead is in the wall time, and
     its device time sums activities that overlap, such as a copy and a
-    kernel, so busy can pass wall by a hair)."""
+    kernel, so busy can pass wall by a hair). Busy sums the card's own
+    events only (``on_device``); ``host=False`` traces only those."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3 / reps
 
-    def dev(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    events = prof.key_averages()
-    busy = sum(dev(e) for e in events) / reps / 1e3
-    k4 = sum(dev(e) for e in events if "whitted5_kernel" in e.key) / reps / 1e3
+    events = [e for e in prof.key_averages() if on_device(e)]
+    busy = sum(dev_time(e) for e in events) / reps / 1e3
+    k4 = sum(dev_time(e) for e in events if "whitted5_kernel" in e.key) / reps / 1e3
     return wall, busy, k4
+
+
+def dev_time(e) -> float:
+    """An averaged profiler event's own device time, in microseconds."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def on_device(e) -> bool:
+    """True for the events of the card itself (kernels, copies). An operator
+    on the host carries its kernels' device time too, so a sum over both
+    would count it twice."""
+    return getattr(e, "device_type", None) is not None and e.device_type.name != "CPU"
 
 
 def w5_cell(scene, w, h, cfg):
@@ -1449,9 +1896,16 @@ def w5_summary(cells, k5, errs, main_launches, frac, diag, k5_shares):
     return k4, k5e
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
+    ap.add_argument("--only-grad", action="store_true",
+                    help="build, then run the K1 parity checks and the grad phase only "
+                    "(a quick check while working on the differentiable path)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("error: no CUDA device; chip_smoke.py runs on a GPU", file=sys.stderr)
         return 1
@@ -1467,6 +1921,13 @@ def main() -> int:
     print(f"[1] built {', '.join(sources())} in {time.perf_counter() - t0:.2f} s")
     print_ptxas(logs)
 
+    if args.only_grad:
+        print("[2] K1 against pt_pass_reference on the card")
+        compare_pass(SCENE, WIDTH, HEIGHT, "pt", "mwc", "cuda")
+        t = time.perf_counter()
+        print(json.dumps({"grad": grad_section(card)}))
+        print(f"  (grad phase {time.perf_counter() - t:.1f} s)")
+        return 0
     t = time.perf_counter()
     kernels = [k1_section()]
     print(f"  (K1 phases {time.perf_counter() - t:.1f} s)")
@@ -1482,8 +1943,18 @@ def main() -> int:
         errs, main_launches, cells, frac, diag, k5_shares = k4_section(tmp)
     kernels.extend(w5_summary(cells, k5, errs, main_launches, frac, diag, k5_shares))
     print(f"  (K4/K5 phases {time.perf_counter() - t:.1f} s)")
+    # The grad phase runs last: its profiler sessions hold ~25k kernels
+    # each, and the sessions of the earlier phases, made after them, came
+    # back without some of their events.
+    t = time.perf_counter()
+    grad = grad_section(card)
+    kernels[0]["launches_per_differentiable_forward"] = grad["forward_backward"]["spp2"][
+        "k1_launches_per_forward"]
+    kernels[1]["launches_per_differentiable_forward"] = grad["k2"]["k2_launches_per_forward"]
+    print(f"  (grad phase {time.perf_counter() - t:.1f} s)")
 
     print(card)
+    print(json.dumps({"grad": grad}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

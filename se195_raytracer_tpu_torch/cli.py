@@ -53,6 +53,9 @@ def _render_whitted5(args, scene_name):
     scene = WHITTED5_SCENES[scene_name](args.device)
     kw = dict(width=args.width, height=args.height, seed=args.seed, use_kernel=args.kernel,
               device=args.device)
+    if args.soft > 0.0:
+        # The relaxation runs on the plain tracer: K4 is the hard estimator.
+        kw.update(use_kernel=False, soft_edges=args.soft)
     if args.adaptive:
         img, frac = render_whitted5_adaptive(scene, **kw)
         print(f"adaptive supersampling: {frac * 100:.1f}% edge pixels got 4 rays",
@@ -74,9 +77,16 @@ def cmd_render(args) -> int:
     if args.adaptive and args.integrator != "whitted5":
         print("error: --adaptive is for --integrator whitted5", file=sys.stderr)
         return 2
-    if args.soft > 0.0:
-        print("error: --soft > 0 (the soft-edge relaxation) is not yet ported", file=sys.stderr)
+    if args.soft > 0.0 and args.adaptive:
+        print("error: --soft is not available with --adaptive (the adaptive renderer runs "
+              "the hard estimator only)", file=sys.stderr)
         return 2
+    if args.soft > 0.0 and args.integrator == "whitted":
+        print("error: --soft is for --integrator pt, dl or whitted5", file=sys.stderr)
+        return 2
+    if args.soft > 0.0:
+        print("--soft: rendering on the plain PyTorch path (the kernels implement the hard "
+              "estimator)", file=sys.stderr)
     if args.integrator in ("pt", "dl") and scene_name not in SCENES:
         print(
             f"error: unknown scene {scene_name!r} (known: {', '.join(list_scenes())}); "
@@ -92,10 +102,11 @@ def cmd_render(args) -> int:
         integrator=args.integrator if args.integrator in ("pt", "dl") else "pt",
         seed=args.seed,
         ray_tile=args.ray_tile,
-        use_kernel=args.kernel,
+        use_kernel=args.kernel and args.soft == 0.0,
         supersample=args.supersample,
         trace_depth=args.trace_depth,
         hit_bias=args.hit_bias,
+        soft_edges=args.soft,
     )
     t0 = time.perf_counter()
     if args.integrator == "whitted":
@@ -181,8 +192,11 @@ def main(argv=None) -> int:
                    help="whitted5: adaptive 1-vs-4-ray supersampling (raytracer5 "
                    "Engine::Render, raytracer.cpp:481-535)")
     p.add_argument("--soft", type=float, default=0.0, metavar="W",
-                   help="soft-edge relaxation width; only 0 (the reference's hard "
-                   "estimator) is ported, W > 0 exits 2")
+                   help="differentiable-visibility relaxation width in world units (0 = "
+                   "the reference's hard estimator). pt/dl: softens the emissive-hit and "
+                   "shadow indicators; whitted5: softens the shadow visibility. W > 0 renders "
+                   "on the plain PyTorch path (the kernels implement the hard estimator); "
+                   "not with --adaptive or whitted")
     p.add_argument(
         "--kernel",
         action=argparse.BooleanOptionalAction,

@@ -35,11 +35,13 @@ class RenderConfig:
     trace_depth: int = 5
     hit_bias: float = 0.0
     # The raytracer5 family (models/whitted5.py) takes its knobs as keyword
-    # arguments, not from this class: width, height, spp, seed and use_kernel
-    # mean the same there; its trace depth is TRACEDEPTH5 = 4 (the CLI's
-    # --trace-depth is the 3.2.0x knob), and soft_edges > 0 raises there too.
-    # Differentiable-visibility relaxation width. The port implements the
-    # hard estimator only; > 0 raises NotImplementedError at render time.
+    # arguments, not from this class: width, height, spp, seed, use_kernel
+    # and soft_edges mean the same there; its trace depth is TRACEDEPTH5 = 4
+    # (the CLI's --trace-depth is the 3.2.0x knob).
+    # Differentiable-visibility relaxation width in world units (0 = the
+    # reference's hard estimator). The plain path renders the relaxed
+    # estimator (models/smallpt.py); the kernels implement the hard one, so
+    # > 0 with use_kernel raises at render time.
     soft_edges: float = 0.0
 
     def __post_init__(self):

@@ -37,8 +37,11 @@ def pixel_coords(width: int, height: int, device=None) -> Tuple[torch.Tensor, to
     return cols.repeat(height), (height - 1 - rows).repeat_interleave(width)
 
 
-def _sample_once(scene, basis, config: RenderConfig, xs, ys, state: MWCState):
-    """One progressive pass: camera rays + radiance, in ``ray_tile`` chunks."""
+def _sample_once(scene, basis, config: RenderConfig, xs, ys, state: MWCState,
+                 remat: bool = False):
+    """One progressive pass: camera rays + radiance, in ``ray_tile`` chunks,
+    with ``config.soft_edges``; ``remat`` checkpoints each bounce
+    (``radiance``)."""
     n = xs.shape[0]
     tile = config.ray_tile or n
     if n % tile != 0:
@@ -51,7 +54,8 @@ def _sample_once(scene, basis, config: RenderConfig, xs, ys, state: MWCState):
             xs[sl], ys[sl], config.rng,
         )
         r, st = radiance(
-            scene, o, d, st, config.max_depth, config.integrator == "dl", config.rng
+            scene, o, d, st, config.max_depth, config.integrator == "dl", config.rng,
+            remat=remat, soft_edges=config.soft_edges,
         )
         rads.append(r)
         s0s.append(st[0])
@@ -107,9 +111,15 @@ def render(
     (kernels/pt_kernel.render_cuda), whose state is (s0, s1, acc, sample);
     otherwise in the plain PyTorch integrator, whose state is a
     ``RenderState``. ``device=None`` means CUDA, and raises when no GPU is
-    present; pass ``device="cpu"`` to run on the CPU."""
-    if config.soft_edges > 0.0:
-        raise NotImplementedError("soft_edges > 0 belongs to the differentiable slice")
+    present; pass ``device="cpu"`` to run on the CPU.
+
+    ``config.soft_edges > 0`` (the relaxed estimator) runs on the plain path
+    only: with ``use_kernel`` it raises, since the kernels implement the
+    hard estimator. Gradients: ``driver.optimize.render_differentiable``."""
+    if config.soft_edges > 0.0 and config.use_kernel:
+        raise NotImplementedError(
+            "soft_edges > 0: the kernels implement the hard estimator; render the relaxed "
+            "one with use_kernel=False")
     device = resolve_device(device)
     if config.use_kernel:
         from se195_raytracer_tpu_torch.kernels.pt_kernel import render_cuda

@@ -15,6 +15,10 @@ s1 [Rp], acc [3, Rp/128, 128], sample)`` has the JAX package's layout, lane
 order and pad-lane seeding, so a state can be carried across between the
 two packages (``convert.py``).
 
+Every wrapper refuses inputs that require grad (``kernels/_guard.py``):
+the kernels have no backward; ``driver/optimize.render_differentiable``
+pairs K1/K2's forward with the plain path's autograd.
+
 Scene table layout (``pack_scene``): rows are
 [cx, cy, cz, rad, ex, ey, ez, colr, colg, colb, refl, emissive], one column
 per sphere.
@@ -39,6 +43,7 @@ from se195_raytracer_tpu_torch.core.types import (
     sqrt_rn,
     update_camera,
 )
+from se195_raytracer_tpu_torch.kernels._guard import refuse_grad
 from se195_raytracer_tpu_torch.models.smallpt import generate_camera_rays, radiance
 from se195_raytracer_tpu_torch.ops.intersect import sphere_intersect
 
@@ -407,6 +412,7 @@ def pt_multi_pass(
     launch the kernel on the current stream (or raise). Inputs are not
     modified: the kernel writes fresh (s0, s1, acc) tensors.
     ``pt_multi_pass.launches`` counts K1 launches."""
+    refuse_grad("pt_multi_pass", scene_tab, cam_tab, acc)
     kw = dict(
         num_samples=num_samples, width=width, height=height,
         max_depth=max_depth, direct_only=direct_only,
@@ -467,6 +473,7 @@ def pt_blocked_pass(
     far (at or beyond the light, for a shadow ray), with the same result
     bits as ``cull=False``. CPU tensors take ``pt_pass_reference``.
     ``pt_blocked_pass.launches`` counts K2 launches."""
+    refuse_grad("pt_blocked_pass", scene_tab, cam_tab, acc)
     kw = dict(
         num_samples=num_samples, width=width, height=height,
         max_depth=max_depth, direct_only=direct_only,
@@ -590,9 +597,14 @@ def render_cuda(
 
     Returns (image [H, W, 3] float32, (s0, s1, acc, sample) state). On a
     CUDA device the passes run in the kernel; on the CPU in its plain
-    version. ``device=None`` means CUDA and raises if there is none."""
+    version. ``device=None`` means CUDA and raises if there is none. Inputs
+    that require a gradient raise (``kernels/_guard.py``): differentiate
+    through ``driver.optimize.render_differentiable``."""
     if config.soft_edges > 0.0:
-        raise NotImplementedError("soft_edges > 0 belongs to the differentiable slice")
+        raise NotImplementedError(
+            "soft_edges > 0: K1 and K2 implement the hard estimator; render the relaxed "
+            "one with use_kernel=False")
+    refuse_grad("render_cuda", scene, camera, None if state is None else state[2])
     device = resolve_device(device)
     scene, camera = scene.to(device), camera.to(device)
     w, h = config.width, config.height

@@ -31,6 +31,8 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from se195_raytracer_tpu_torch.kernels._guard import refuse_grad
+
 # Texture forms of the texel units (kTexF32, kTexU8 in csrc/whitted5_kernel.cu).
 TEX_F32 = 0
 TEX_U8 = 1
@@ -199,6 +201,7 @@ def texel_fetch_cuda(atlas: torch.Tensor, textab: torch.Tensor, tex: torch.Tenso
     when it is not given, it is packed here from the atlas (a caller that
     fetches more than once packs it once). CPU tensors take
     ``texel_fetch_reference``."""
+    refuse_grad("texel_fetch_cuda", atlas, u, v)
     r = u.shape[0]
     for name, t, dt in (("tex", tex, torch.int32), ("u", u, torch.float32),
                         ("v", v, torch.float32), ("live", live, torch.bool)):

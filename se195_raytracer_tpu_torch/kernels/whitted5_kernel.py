@@ -15,6 +15,8 @@ level-1 hit ids. CPU tensors take the plain version; a CUDA tensor launches
 the kernel or raises. ``.launches`` counts the launches and
 ``.texel_launches`` those on a textured scene, where K5's fetch runs inside
 K4 (K5's own entry, ``texel_kernel.texel_fetch_cuda``, counts its own).
+Both refuse inputs that require grad (``kernels/_guard.py``): gradients
+come from the plain tracer, ``use_kernel=False``.
 
 K4 tests a box exactly only behind a rounding-aware slab prefilter, and
 its shadow test runs the light's own candidate first and stops at the
@@ -32,6 +34,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from se195_raytracer_tpu_torch.kernels._guard import refuse_grad
 from se195_raytracer_tpu_torch.kernels.texel_kernel import kernel_lib, pack_texel_units
 from se195_raytracer_tpu_torch.models.whitted5 import (
     _EPS,
@@ -261,6 +264,7 @@ def whitted5_trace_cuda(
     divided by spp when ``mean``; the state advanced by spp passes), plus the
     first pass's level-1 hit ids ([R] int32, -1 on a miss) when
     ``return_primary_idx``. CPU tensors take ``trace_passes``."""
+    refuse_grad("whitted5_trace_cuda", scene, o, d)
     dev = scene.device
     r = o.shape[-2]
     n_sets = 1 if o.dim() == 2 else o.shape[0]

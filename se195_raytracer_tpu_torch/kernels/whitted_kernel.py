@@ -12,7 +12,8 @@ one thread per subsample ray, each block summing the subsamples of its
 Tensors on the CPU take the plain version, ``models/whitted.py``
 (``whitted_trace`` and ``render_whitted_scene``), which is also what the
 tests and ``chip_smoke.py`` hold the kernel against. Each wrapper counts its
-launches in ``.launches``.
+launches in ``.launches`` and refuses inputs that require grad
+(``kernels/_guard.py``).
 
 Scene table (``pack_whitted_scene``): rows [0 type | 1-3 plane normal |
 4 plane depth | 5-7 center | 8 sq_radius | 9 r_radius | 10-12 color |
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from se195_raytracer_tpu_torch.core.types import resolve_device
+from se195_raytracer_tpu_torch.kernels._guard import refuse_grad
 from se195_raytracer_tpu_torch.models.whitted import (
     reduce_subsamples,
     render_whitted_scene,
@@ -123,6 +125,7 @@ def whitted_trace_cuda(
     """Trace explicit rays [6, Rp/128, 128] (origin, direction planes) on
     the scene's device; returns acc [3, Rp/128, 128], each ray's summed tree
     color before the tone scale. CPU tensors take ``whitted_trace``."""
+    refuse_grad("whitted_trace_cuda", scene, rays)
     if rays.dim() != 3 or rays.shape[0] != 6 or rays.shape[2] != LANES:
         raise ValueError(f"rays: need [6, rows, {LANES}], got {tuple(rays.shape)}")
     if rays.device != scene.device or rays.dtype != torch.float32:
@@ -164,6 +167,7 @@ def whitted_frame_cuda(
     reference's fixed camera), the subsamples reduced and tone-scaled there.
     Returns [H, W, 3] float32 in 0..255. CPU tensors take
     ``render_whitted_scene``."""
+    refuse_grad("whitted_frame_cuda", scene, cam_row)
     dev = scene.device
     if cam_row is None:
         cam_row = _packed(scene)[2]

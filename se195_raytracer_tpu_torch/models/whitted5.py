@@ -24,8 +24,11 @@ are one node-major batch, and every node draws from its own counter stream
 here and in K4 (the JAX jnp tracer uses ``jnp.power``: a few ulps apart).
 Dot products are elementwise sums left to right (``core/types.dot3``).
 
-Not ported: ``soft_edges > 0`` (the smooth shadow transmittance of the
-differentiable slice) raises.
+``soft_edges > 0`` swaps CalcShade's binary visibility for the smooth
+shadow transmittance (``_soft_shadow_transmittance``), so that the
+silhouettes of area lights and occluders carry gradients. It runs on the
+plain tracer only (K4 is the hard estimator), which is differentiable
+dataflow: textures, materials, geometry and light positions back-propagate.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import torch
 
 from se195_raytracer_tpu_torch.core.rng import MWCState, counter_next_masked
 from se195_raytracer_tpu_torch.core.types import dot3, resolve_device, sqrt_rn
+from se195_raytracer_tpu_torch.models.smallpt import _sigmoid, _soft_root
 from se195_raytracer_tpu_torch.models.whitted import _pow20
 from se195_raytracer_tpu_torch.scenes.whitted5_scenes import (
     BOX5,
@@ -61,12 +65,6 @@ HIT, MISS, INPRIM = 1, 0, -1
 
 _EPS = float(np.float32(EPSILON5))
 _M32 = 0xFFFFFFFF
-
-
-def _no_soft(soft_edges: float) -> None:
-    if soft_edges > 0.0:
-        raise NotImplementedError(
-            "soft_edges > 0 (the smooth shadow transmittance) is not yet ported")
 
 
 def _arccos1(x: torch.Tensor) -> torch.Tensor:
@@ -198,6 +196,87 @@ def _nearest_is(scene: Whitted5Scene, o, d, max_dist: torch.Tensor, target: int)
     dist, _, valid = _prim_candidates(scene, o, d)
     best, amin = _first_min(dist, valid)
     return (best < max_dist) & (amin == target)
+
+
+def _soft_shadow_transmittance(scene: Whitted5Scene, o: torch.Tensor, d: torch.Tensor,
+                               max_t: torch.Tensor, target: int, soft_w: float) -> torch.Tensor:
+    """[R] smooth shadow transmittance in [0, 1] (1 = fully lit), the whitted5
+    face of the relaxation of models/smallpt.py: it replaces ``_nearest_is``'s
+    binary nearest-is-the-light indicator. Every primitive but ``target``
+    occludes with a smooth weight occ_j = sigma(margin / w) * an in-range
+    window, and T = prod(1 - occ_j).
+
+    Spheres use the silhouette distance, as in smallpt. One-sided planes keep
+    the facing test hard (it depends on the shadow ray's direction only) and
+    soften the in-range window. Boxes use smooth windows around the slab
+    entry/exit span, the span itself from hard min/max (continuous, with
+    bounded derivatives, inside the band that the relaxation blurs).
+
+    As in the JAX package, the plane term does not recover the hard
+    tracer's quirk as w -> 0: a plane has no dist > 0 guard there, so one
+    behind the origin can be the nearest hit, where the soft window asks
+    for t > EPSILON."""
+    w = float(np.float32(soft_w))
+    sph, pla, box, _ = _type_partition(scene.ptype)
+    dev = o.device
+    mt = max_t[:, None]
+    trans = torch.ones(o.shape[0], dtype=torch.float32, device=dev)
+
+    def in_range(t):
+        return _sigmoid((t - _EPS) / w) * _sigmoid((mt - t) / w)
+
+    def drop_target(occ, cls_idx):
+        return torch.where(_ix(cls_idx != target, dev)[None, :], occ, 0.0)
+
+    if sph.size:
+        si = _ix(sph, dev)
+        r = scene.radius[si]
+        op = scene.center[si][None, :, :] - o[:, None, :]
+        b = dot3(op, d[:, None, :])
+        perp = op - b[..., None] * d[:, None, :]
+        pd = sqrt_rn(torch.clamp(dot3(perp, perp), min=1e-12))
+        m_sil = r[None, :] - pd
+        sq = _soft_root(m_sil * (r[None, :] + pd), soft_w)
+        f1 = in_range(b - sq)
+        f2 = in_range(b + sq)
+        occ = _sigmoid(m_sil / w) * (f1 + f2 - f1 * f2)
+        trans = trans * torch.prod(1.0 - drop_target(occ, sph), dim=-1)
+
+    if pla.size:
+        pi = _ix(pla, dev)
+        nrm = scene.normal[pi]
+        pdir = (nrm[None, :, 0] * d[:, None, 0] + nrm[None, :, 1] * d[:, None, 1]
+                + nrm[None, :, 2] * d[:, None, 2])
+        pdir_safe = torch.where(pdir != 0.0, pdir, 1.0)
+        no = (nrm[None, :, 0] * o[:, None, 0] + nrm[None, :, 1] * o[:, None, 1]
+              + nrm[None, :, 2] * o[:, None, 2])
+        t = -(no + scene.depth[pi][None, :]) / pdir_safe
+        occ = torch.where(pdir < 0.0, in_range(t), 0.0)
+        trans = trans * torch.prod(1.0 - drop_target(occ, pla), dim=-1)
+
+    if box.size:
+        bi = _ix(box, dev)
+        v1 = scene.box_pos[bi]
+        v2 = v1 + scene.box_size[bi]
+        big = 1e30
+        tmin = torch.full((o.shape[0], box.size), -big, dtype=torch.float32, device=dev)
+        tmax = torch.full((o.shape[0], box.size), big, dtype=torch.float32, device=dev)
+        for axis in range(3):
+            d_a = d[:, axis:axis + 1]
+            o_a = o[:, axis:axis + 1]
+            d_safe = torch.where(d_a != 0.0, d_a, 1.0)
+            ta = (v1[None, :, axis] - o_a) / d_safe
+            tb = (v2[None, :, axis] - o_a) / d_safe
+            inside_a = (o_a > v1[None, :, axis]) & (o_a < v2[None, :, axis])
+            lo = torch.where(d_a != 0.0, torch.minimum(ta, tb), torch.where(inside_a, -big, big))
+            hi = torch.where(d_a != 0.0, torch.maximum(ta, tb), torch.where(inside_a, big, -big))
+            tmin = torch.maximum(tmin, lo)
+            tmax = torch.minimum(tmax, hi)
+        occ = (_sigmoid((tmax - tmin) / w) * _sigmoid((tmax - _EPS) / w)
+               * _sigmoid((mt - tmin) / w))
+        trans = trans * torch.prod(1.0 - drop_target(occ, box), dim=-1)
+
+    return trans
 
 
 _BOX_NORMALS = ((-1.0, 0.0, 0.0), (1.0, 0.0, 0.0), (0.0, -1.0, 0.0),
@@ -346,21 +425,28 @@ def _texel_lanes(scene: Whitted5Scene, idx: torch.Tensor, point: torch.Tensor, l
 
 
 def calc_shade(scene: Whitted5Scene, light: int, point: torch.Tensor, state: MWCState,
-               draw_mask: torch.Tensor, n_samples: int, on_sweep: Optional[Callable] = None):
+               draw_mask: torch.Tensor, n_samples: int, on_sweep: Optional[Callable] = None,
+               soft_edges: float = 0.0):
     """CalcShade (raytracer.cpp:371-406): (shade [R], L [R, 3], new state).
     A sphere light: binary visibility of the light. Anything else is a box
     area light: ``n_samples`` jittered grid samples on its bottom face, each
     weighted 1/n_samples, drawing u1 then u2 per sample where ``draw_mask``.
     ``on_sweep(o, d, mask, max_t, target)`` sees every shadow ray, ``mask``
-    the lanes whose node is shaded (``draw_mask``)."""
+    the lanes whose node is shaded (``draw_mask``). ``soft_edges > 0``
+    replaces each binary visibility with ``_soft_shadow_transmittance``."""
+
+    def _visible(o, d, max_t):
+        if soft_edges > 0.0:
+            return _soft_shadow_transmittance(scene, o, d, max_t, light, soft_edges)
+        return torch.where(_nearest_is(scene, o, d, max_t, light), 1.0, 0.0)
+
     if scene.ptype[light] == SPHERE5:
         ldir = scene.center[light][None] - point
         tdist = sqrt_rn(torch.clamp(dot3(ldir, ldir), min=1e-30))
         ldir = ldir / tdist[:, None]
         if on_sweep is not None:
             on_sweep(point + ldir * _EPS, ldir, draw_mask, tdist, light)
-        vis = _nearest_is(scene, point + ldir * _EPS, ldir, tdist, light)
-        return torch.where(vis, 1.0, 0.0), ldir, state
+        return _visible(point + ldir * _EPS, ldir, tdist), ldir, state
     pos = scene.box_pos[light]
     size = scene.box_size[light]
     ldir = (pos + 0.5 * size)[None] - point
@@ -381,14 +467,13 @@ def calc_shade(scene: Whitted5Scene, light: int, point: torch.Tensor, state: MWC
         sdir = sdir / ldist[:, None]
         if on_sweep is not None:
             on_sweep(point + sdir * _EPS, sdir, draw_mask, ldist, light)
-        vis = _nearest_is(scene, point + sdir * _EPS, sdir, ldist, light)
-        shade = shade + torch.where(vis, 1.0, 0.0) * sscale
+        shade = shade + _visible(point + sdir * _EPS, sdir, ldist) * sscale
     return shade, ldir, state
 
 
 def _shade_node(scene: Whitted5Scene, o: torch.Tensor, d: torch.Tensor, state: MWCState,
                 draw_mask: torch.Tensor, area_samples: int, on_sweep: Optional[Callable] = None,
-                work: Optional[dict] = None):
+                work: Optional[dict] = None, soft_edges: float = 0.0):
     """One Raytrace node's local work (raytracer.cpp:239-285): nearest hit,
     light by light diffuse plus Phong-20 specular under CalcShade
     visibility; a light that is hit returns its color. ``on_sweep(o, d,
@@ -396,7 +481,7 @@ def _shade_node(scene: Whitted5Scene, o: torch.Tensor, d: torch.Tensor, state: M
     ``mask`` the live lanes, ``draw_mask``) and every shadow ray. ``work``,
     when a dict, gets ``shadow_sweeps_used`` added to it: the shadow rays of
     the (node, light) pairs whose diffuse or specular term can use the
-    shade (K4 traces only those)."""
+    shade (K4 traces only those). ``soft_edges`` goes to ``calc_shade``."""
     if on_sweep is not None:
         on_sweep(o, d, draw_mask, None, None)
     idx, code, dist = find_nearest(scene, o, d)
@@ -417,7 +502,7 @@ def _shade_node(scene: Whitted5Scene, o: torch.Tensor, d: torch.Tensor, state: M
         if not scene.is_light[li]:
             continue
         shade, ldir, state = calc_shade(scene, li, point, state, draw_mask & hit & ~hit_light,
-                                        area_samples, on_sweep)
+                                        area_samples, on_sweep, soft_edges)
         pos_shade = shade > 0.0
         lcol = scene.color[li][None]
         dnl = dot3(ldir, n_hit)
@@ -501,8 +586,8 @@ def whitted5_trace(
     in ray order within a node (the ``texels`` that ``work`` counts).
 
     Returns (color [R, 3], advanced state), plus the level-1 hit ids ([R],
-    -1 on a miss) when ``return_primary_idx``."""
-    _no_soft(soft_edges)
+    -1 on a miss) when ``return_primary_idx``. ``soft_edges > 0`` shades with
+    the smooth shadow transmittance (``calc_shade``)."""
     dev = o.device
     r = o.shape[0]
     key_in = state[0].to(torch.int64)
@@ -524,7 +609,7 @@ def whitted5_trace(
         hvec = torch.tensor(heap_ids, dtype=torch.int64, device=dev).repeat_interleave(r)
         st = (_node_key(key_in.repeat(k), hvec), ctr_in.repeat(k))
         idx, code, dist, point, color, n_hit, local, st = _shade_node(
-            scene, o_b, d_b, st, valid, n_samp[level - 1], on_sweep, work)
+            scene, o_b, d_b, st, valid, n_samp[level - 1], on_sweep, work, soft_edges)
         if level == 1:
             primary_idx = idx
         hit = idx >= 0
@@ -613,21 +698,22 @@ def trace_passes(scene: Whitted5Scene, o: torch.Tensor, d: torch.Tensor, state: 
                  spp: int = 1, mean: bool = True, trace_depth: int = TRACEDEPTH5,
                  area_samples_by_level=AREA_SAMPLES_BY_LEVEL, return_primary_idx: bool = False,
                  work: Optional[dict] = None, on_sweep: Optional[Callable] = None,
-                 on_texel: Optional[Callable] = None):
+                 on_texel: Optional[Callable] = None, soft_edges: float = 0.0):
     """``spp`` successive passes of ``whitted5_trace``, summed (then divided
     by spp when ``mean``). ``o``/``d`` are [R, 3] (every pass traces the same
     rays) or [spp, R, 3] (pass p traces set p). Returns (color [R, 3], state
     advanced by spp passes), plus the first pass's level-1 hit ids when
-    ``return_primary_idx``. ``work``, ``on_sweep`` and ``on_texel`` are
-    passed to ``whitted5_trace``. This is K4's plain version."""
+    ``return_primary_idx``. ``work``, ``on_sweep``, ``on_texel`` and
+    ``soft_edges`` are passed to ``whitted5_trace``. With ``soft_edges == 0``
+    this is K4's plain version."""
     if o.dim() == 2:
         o, d = o[None], d[None]
     acc, idx, st = None, None, state
     for p in range(spp):
         op, dp = o[p % o.shape[0]], d[p % d.shape[0]]
         col, st, pidx = whitted5_trace(scene, op, dp, st, trace_depth, area_samples_by_level,
-                                       return_primary_idx=True, work=work, on_sweep=on_sweep,
-                                       on_texel=on_texel)
+                                       soft_edges, return_primary_idx=True, work=work,
+                                       on_sweep=on_sweep, on_texel=on_texel)
         idx = pidx if idx is None else idx
         acc = col if acc is None else acc + col
     if mean:
@@ -748,12 +834,21 @@ def render_whitted5(
     ``spp`` stochastic passes (area-light jitter, glossy) at the pixel
     centres. With ``use_kernel`` one K4 launch runs every pass. ``device=None``
     means CUDA and raises when no GPU is present. ``work``: the plain path's
-    live-work count (``whitted5_trace``)."""
-    _no_soft(soft_edges)
+    live-work count (``whitted5_trace``).
+
+    ``soft_edges > 0`` renders the relaxed estimator (smooth shadow
+    transmittance) on the plain tracer; with ``use_kernel`` it raises, since
+    K4 implements the hard estimator. The plain tracer back-propagates to
+    the scene's tensors (textures, ``box_pos``, colours, ...)."""
+    if soft_edges > 0.0 and use_kernel:
+        raise NotImplementedError(
+            "soft_edges > 0: K4 implements the hard estimator; render the relaxed one "
+            "with use_kernel=False")
     scene, dev = _placed(scene, device)
     o, d = _cached_rays5(width, height, (0.5, 0.5), dev)
     state = _cached_state5(o.shape[0], seed, dev)
-    col, _ = _trace(scene, o, d, state, use_kernel, work, spp=spp, trace_depth=trace_depth)
+    kw = dict(soft_edges=soft_edges) if soft_edges > 0.0 else {}
+    col, _ = _trace(scene, o, d, state, use_kernel, work, spp=spp, trace_depth=trace_depth, **kw)
     return col.reshape(height, width, 3)
 
 

@@ -88,6 +88,10 @@ def test_cli_renders_on_cpu_when_asked(tmp_path):
                 "--spp", "1", "--device", "cpu", "--out", str(out), *extra]
         assert cli.main(argv) == 0
         assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    # --soft renders the relaxed estimator on the plain tracer; the adaptive
+    # renderer runs the hard estimator only and refuses it.
     assert cli.main(["render", "--integrator", "whitted5", "--width", "16", "--height", "12",
-                     "--soft", "0.5", "--device", "cpu", "--out", ""]) != 0
+                     "--spp", "1", "--soft", "0.5", "--device", "cpu", "--out", ""]) == 0
+    assert cli.main(["render", "--integrator", "whitted5", "--width", "16", "--height", "12",
+                     "--soft", "0.5", "--adaptive", "--device", "cpu", "--out", ""]) != 0
     assert cli.main(["scenes"]) == 0

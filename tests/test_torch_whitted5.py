@@ -427,7 +427,8 @@ def test_convert_round_trip():
 
 
 def test_refusals():
-    """soft_edges > 0 is not ported; the kernel holds at most depth 5."""
+    """soft_edges > 0 with the kernel raises (K4 is the hard estimator; the
+    plain tracer renders the relaxed one); the kernel holds at most depth 5."""
     _, ps = _scenes("room5")
     with pytest.raises(NotImplementedError, match="soft_edges"):
         P.render_whitted5(ps, 4, 4, soft_edges=0.5, device="cpu")
