@@ -51,6 +51,24 @@
     4 x two shadow-sample tables at 800x600 spp 1); K5's share of K4 at
     room5 800x600 spp 8 on both texture sets (K4 against a twin scene
     without texture ids, in turns);
+S. the sharded paths (parallel/), 8 shards on cuda:0, each image held
+   bitwise to the single-device render and timed end to end beside it (the
+   cost of 8 launches on one card; no scaling claim): Cornell 512x512 x 8
+   spp through K1 (8 K1 launches, no plain ``radiance``), complex783
+   512x512 x 8 spp and 640x480 x 1 spp (2 pad tiles) through K2, Whitted
+   room 800x600 3x3 through K3's explicit-ray entry against its frame
+   entry, room5 800x600 spp 8 through K4; two processes on the card (gloo,
+   ``initialize_multihost``, ``all_gather``) rendering Cornell 512x512 x 8
+   spp, bitwise the one-process frame; sharded gradients at Cornell 128x128
+   spp 1 against one device (rtol 1e-5); the 3,908-sphere
+   ``complex_scene(max_depth=5)`` at 512x512 through K2 (past 48 KB of
+   shared memory) against its plain version under K2's contract, and a
+   1,000-primitive Whitted scene through both K3 entries, bitwise against
+   the plain tracer; a session (30 ``step_for`` calls around a camera
+   edit; the image after it a fresh render from the kept seeds, bitwise);
+   a checkpoint saved, loaded and resumed, bitwise; ``cli bench``'s JSON
+   line; ``render --scene tests/fixtures/scenes/cornell_scn.scn
+   --profile DIR``, whose trace holds K1;
 G. last, the differentiable path (driver/optimize.py), Cornell 512x512, PT, mwc,
    seed 0: ``render_differentiable`` at spp 2 and 8 is one K1 launch and no
    plain ``radiance`` (a counting wrapper this script installs), its image
@@ -66,13 +84,16 @@ G. last, the differentiable path (driver/optimize.py), Cornell 512x512, PT, mwc,
    idle share and peak memory, and an spp-2 step's peak memory with remat
    on and off; whitted5 soft (room5 320x240, the plain tracer) and its
    light-position gradient;
-13. prints the grad phase's numbers (``{"grad": {...}}``), one JSON line per
-    kernel (``{"kernels": [...]}``, K1-K5, K1 and K2 with their launches
-    per differentiable forward) and, last, ``{"ok": true, "device":
-    {...}}``.
+13. prints the grad phase's numbers (``{"grad": {...}}``), the sharded
+    phase's (``{"sharded": {...}}``), one JSON line per kernel
+    (``{"kernels": [...]}``, K1-K5, K1 and K2 with their launches per
+    differentiable forward, each with its launches in the sharded render
+    that runs it, as counted there; K5's are the room5 K4 launches it ran
+    inside)
+    and, last, ``{"ok": true, "device": {...}}``.
 
 ``--only-grad`` builds the kernels and runs K1's first check and the grad
-phase only.
+phase only; ``--only-sharded`` the sharded phase only.
 
 Any failed check exits non-zero before the last line. Imports nothing of
 JAX or of the JAX package. Exits non-zero without a result when no CUDA
@@ -218,13 +239,14 @@ def get_spec(name):
 
 def pass_inputs(scene_name, width, height, integrator, rng, device, seed=SEED):
     """Scene table, camera row, fresh (s0, s1, acc), pix (None for K1) and
-    keyword arguments of K1 or K2 at the shapes render_cuda gives them."""
+    keyword arguments of K1 or K2 at the shapes render_cuda gives them.
+    ``scene_name`` is a registry name or a SceneSpec."""
     import torch
 
     from se195_raytracer_tpu_torch.core.config import RenderConfig
     from se195_raytracer_tpu_torch.kernels import pt_kernel as ptk
 
-    spec = get_spec(scene_name)
+    spec = get_spec(scene_name) if isinstance(scene_name, str) else scene_name
     scene, camera = spec.to_scene(device), spec.to_camera(device)
     cfg = RenderConfig(width=width, height=height, spp=1, seed=seed,
                        integrator=integrator, rng=rng)
@@ -266,6 +288,28 @@ def compare_pass(scene_name, width, height, integrator, rng, device):
     check(state_mismatch <= MAX_STATE_MISMATCH,
           f"{integrator}/{rng}: {state_mismatch:.3%} lanes differ in RNG state")
     return max_err, mismatch, state_mismatch
+
+
+def k2_against_plain(spec, width=WIDTH, height=HEIGHT):
+    """One 1-spp PT/mwc pass of K2 and of its plain version on the same
+    inputs, the plain one in chunks of 16 tiles (each lane is independent);
+    returns (mismatch, state mismatch, K2's mean, the plain mean)."""
+    import torch
+
+    from se195_raytracer_tpu_torch.kernels import pt_kernel as ptk
+
+    tab, camt, (s0, s1, acc), pix, kw = pass_inputs(spec, width, height, "pt", "mwc", "cuda")
+    k0, _, kacc = ptk.pt_multi_pass(tab, camt, 0, s0, s1, acc, pix, num_samples=1, **kw)
+    chunk = 16 * ptk.TILE
+    parts = [ptk.pt_pass_reference(tab, camt, 0, s0[a:a + chunk], s1[a:a + chunk],
+                                   acc.reshape(3, -1)[:, a:a + chunk].contiguous(),
+                                   pix[a:a + chunk], num_samples=1, **kw)
+             for a in range(0, s0.shape[0], chunk)]
+    a = kacc.reshape(3, -1).double()
+    b = torch.cat([p[2] for p in parts], dim=1).double()
+    mism = 1.0 - torch.isclose(a, b, rtol=CLOSE_RTOL, atol=CLOSE_ATOL).double().mean().item()
+    st_mism = (k0 != torch.cat([p[0] for p in parts])).double().mean().item()
+    return mism, st_mism, a.mean().item(), b.mean().item()
 
 
 def check_resume(scene_name, width, height, device):
@@ -1896,6 +1940,407 @@ def w5_summary(cells, k5, errs, main_launches, frac, diag, k5_shares):
     return k4, k5e
 
 
+# The sharded phase: 8 shards on cuda:0 (the in-process mesh), and two
+# processes on the one card (gloo).
+SHARDS = 8
+SHARD_CELLS = (("K1", "cornell", 512, 512, 8), ("K2", COMPLEX, 512, 512, 8))
+SHARD_GRAD = dict(width=128, height=128, spp=1)
+GRAD_SHARD_RTOL, GRAD_SHARD_ATOL = 1e-5, 1e-7  # tests/test_sharding.py:127
+SESSION_CALLS = (25, 5)  # step_for calls before and after the camera edit
+SESSION_BUDGET_S = 0.02
+BIG_WHITTED_PRIMS = 1000
+BIG_WHITTED = dict(width=200, height=150, supersample=1, trace_depth=5)
+TWO_PROCESS_TIMEOUT_S = 300
+
+# One rank of the two-process render: argv port, rank, output .npy path.
+_RANK_SCRIPT = r"""
+import json, sys, time
+import numpy as np
+import torch
+from se195_raytracer_tpu_torch.core.config import RenderConfig
+from se195_raytracer_tpu_torch.kernels import pt_kernel as ptk
+from se195_raytracer_tpu_torch.parallel import render_sharded as rs
+from se195_raytracer_tpu_torch.parallel.mesh import make_mesh
+from se195_raytracer_tpu_torch.scenes.registry import get_scene
+import torch.distributed as dist
+
+port, rank, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+rs.initialize_multihost(f"127.0.0.1:{port}", 2, rank)
+mesh = make_mesh("cuda:0", process_group=True)
+spec = get_scene("cornell")
+scene, cam = spec.to_scene("cuda"), spec.to_camera("cuda")
+cfg = RenderConfig(width=512, height=512, spp=8, seed=0)
+rs.render_cuda_sharded(scene, cam, cfg, mesh)  # warm-up: load the kernels
+times = []
+ptk.pt_multi_pass.launches = 0
+for _ in range(5):
+    dist.barrier()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    img, _ = rs.render_cuda_sharded(scene, cam, cfg, mesh)
+    img = img.cpu()
+    times.append((time.perf_counter() - t) * 1e3)
+if rank == 0:
+    np.save(out, img.numpy())
+print(json.dumps({"rank": rank, "ms": sorted(times)[2], "times": times,
+                  "k1_launches_per_render": ptk.pt_multi_pass.launches / 5}))
+dist.destroy_process_group()
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def e2e_ms(fn, reps=REPS):
+    """host_ms of a render whose image is read back to the host."""
+    return host_ms(lambda: fn().cpu(), reps)
+
+
+def _sharded_cell(label, single_fn, sharded_fn, want):
+    """Run ``sharded_fn`` with every counter at 0 (and the plain ``radiance``
+    counted), hold its image bitwise to ``single_fn``'s, time both end to
+    end (with readback). ``want`` names the kernel each shard launches."""
+    import torch
+
+    single = single_fn()
+    zero_counters()
+    calls, undo = count_plain_radiance()
+    try:
+        sharded = sharded_fn()
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    launches = read_counters()
+    same = bool(torch.equal(sharded, single))
+    diff = (sharded - single).abs().max().item()
+    check(bool(torch.isfinite(sharded).all()), f"{label}: sharded image not finite")
+    # K5 runs inside each K4 launch on a textured scene.
+    others = {k: v for k, v in launches.items() if k not in (want, "K5" if want == "K4" else want)}
+    check(launches[want] == SHARDS and not any(others.values()) and calls["n"] == 0,
+          f"{label}: launches {launches}, plain radiance calls {calls['n']} (want {SHARDS} "
+          f"{want}, nothing else)")
+    one_ms, _ = e2e_ms(single_fn)
+    n_ms, n_times = e2e_ms(sharded_fn)
+    print(f"  {label}: {SHARDS} shards bitwise equal to one launch: {same} (max |diff| "
+          f"{diff:.3g}); launches {launches}; e2e {n_ms:.4f} ms for {SHARDS} launches on one "
+          f"card against {one_ms:.4f} ms for one ({n_ms / one_ms:.4f}x)")
+    check(same, f"{label}: sharded image differs from the single-device render by {diff}")
+    return {"bitwise": same, "launches": launches, "e2e_ms": n_ms, "single_e2e_ms": one_ms,
+            "ratio": n_ms / one_ms, "times": n_times}
+
+
+def big_whitted_scene(device):
+    """A Whitted scene of BIG_WHITTED_PRIMS primitives (past the ~500 that
+    fit in 48 KB of shared memory): grid_scene's planes, lights and feature
+    spheres, and a 31 x 32 grid of small spheres behind them."""
+    from se195_raytracer_tpu_torch.scenes.whitted_scenes import WhittedSceneBuilder, _adders, _mat
+
+    b = WhittedSceneBuilder()
+    plane, sphere = _adders(b)
+    plane(_mat(0.4, 0.3, 0.3, 0.0, 0.0, 1.0, 1.0, 0.8), False, 0.0, 1.0, 0.0, 4.4)
+    sphere(_mat(0.7, 0.7, 1.0, 0.0, 1.0, 1.3, 0.2, 0.8), False, 2.0, 0.8, 3.0, 2.5)
+    sphere(_mat(0.7, 0.7, 1.0, 0.5, 0.0, 1.0, 0.1, 0.8), False, -5.5, -0.5, 7.0, 2.0)
+    sphere(_mat(0.4, 0.4, 0.4, 0.0, 0.0, 1.0, 0.0, 0.0), True, 0.0, 5.0, 5.0, 0.1)
+    sphere(_mat(0.6, 0.6, 0.8, 0.0, 0.0, 1.0, 0.0, 0.0), True, -3.0, 5.0, 1.0, 0.1)
+    sphere(_mat(1.0, 0.4, 0.4, 0.5, 0.0, 1.0, 0.2, 0.8), False, -1.5, -3.8, 1.0, 1.5)
+    plane(_mat(0.5, 0.3, 0.5, 0.0, 0.0, 1.0, 0.6, 0.0), False, 0.4, 0.0, -1.0, 12.0)
+    plane(_mat(0.4, 0.7, 0.7, 0.0, 0.0, 1.0, 0.5, 0.0), False, 0.0, -1.0, 0.0, 7.4)
+    for x in range(32):
+        for y in range(31):
+            sphere(_mat(0.3 + 0.02 * (x % 8), 1.0, 0.4, 0.2 * (y % 2), 0.0, 1.0, 0.6, 0.6),
+                   False, -5.4 + x * 0.35, -4.3 + y * 0.3, 10.0, 0.12)
+    scene = b.build(device)
+    check(scene.num_prims == BIG_WHITTED_PRIMS, f"big Whitted scene has {scene.num_prims}")
+    return scene
+
+
+def two_process_render(tmp):
+    """Two ranks on cuda:0 over gloo (initialize_multihost, all_gather):
+    Cornell 512x512 x 8 spp through K1, one shard a rank. Returns (rank 0's
+    frame, each rank's JSON line)."""
+    import numpy as np
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = root
+    out = os.path.join(tmp, "two_process.npy")
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, "-c", _RANK_SCRIPT, str(port), str(rank), out],
+                              cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for rank in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=TWO_PROCESS_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, (_, err)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"rank {rank} exited {p.returncode}:\n{err[-3000:]}")
+    lines = [json.loads(o.strip().splitlines()[-1]) for o, _ in outs]
+    return np.load(out), lines
+
+
+def sharded_section(tmp):
+    """Phase S: the sharded and multi-process paths, the 3,908-sphere scene
+    through K2, the 1,000-primitive Whitted scene through K3, the session,
+    the checkpoint, ``bench``, a ``.scn`` scene and ``--profile``."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from se195_raytracer_tpu_torch import cli
+    from se195_raytracer_tpu_torch.core.config import RenderConfig
+    from se195_raytracer_tpu_torch.driver import checkpoint as ck
+    from se195_raytracer_tpu_torch.driver.optimize import LEAVES, l2_image_loss
+    from se195_raytracer_tpu_torch.driver.session import RenderSession
+    from se195_raytracer_tpu_torch.kernels import pt_kernel as ptk
+    from se195_raytracer_tpu_torch.kernels import whitted_kernel as wk
+    from se195_raytracer_tpu_torch.models import whitted as W
+    from se195_raytracer_tpu_torch.models.whitted5 import render_whitted5
+    from se195_raytracer_tpu_torch.parallel import render_sharded as rs
+    from se195_raytracer_tpu_torch.parallel.mesh import make_mesh
+    from se195_raytracer_tpu_torch.scenes.generator import complex_scene
+    from se195_raytracer_tpu_torch.scenes.whitted5_scenes import room5_scene
+    from se195_raytracer_tpu_torch.scenes.whitted_scenes import WHITTED_SCENES
+
+    res = {}
+    mesh = make_mesh("cuda:0", n_devices=SHARDS)
+    print(f"[S1] sharded renders, {SHARDS} shards on cuda:0, each bitwise against one launch "
+          "(end to end with readback: the cost of N launches on one card, no scaling claim)")
+    for kernel, name, w, h, spp in SHARD_CELLS:
+        spec = get_spec(name)
+        scene, cam = spec.to_scene("cuda"), spec.to_camera("cuda")
+        cfg = RenderConfig(width=w, height=h, spp=spp, seed=SEED)
+        rp = ptk.ray_layout(w, h, kernel == "K2", SHARDS)[0]
+        res[f"{name} {w}x{h} spp{spp}"] = cell = _sharded_cell(
+            f"{name} {w}x{h} x {spp} spp ({kernel}, {rp // ptk.TILE} tiles)",
+            lambda: ptk.render_cuda(scene, cam, cfg, device="cuda")[0],
+            lambda: rs.render_cuda_sharded(scene, cam, cfg, mesh)[0], kernel)
+        cell["tiles"] = rp // ptk.TILE
+    # 640x480 in K2's blocked layout is 150 tiles: tile_multiple adds 2 pad tiles.
+    spec = get_spec(COMPLEX)
+    scene, cam = spec.to_scene("cuda"), spec.to_camera("cuda")
+    cfg = RenderConfig(width=640, height=480, spp=1, seed=SEED)
+    tiles = (ptk.ray_layout(640, 480, True)[0] // ptk.TILE,
+             ptk.ray_layout(640, 480, True, SHARDS)[0] // ptk.TILE)
+    check(tiles == (150, 152), f"640x480 blocked tiles {tiles}")
+    res["complex 640x480 spp1 pad tiles"] = _sharded_cell(
+        "complex 640x480 x 1 spp (K2, 150 tiles + 2 pad tiles)",
+        lambda: ptk.render_cuda(scene, cam, cfg, device="cuda")[0],
+        lambda: rs.render_cuda_sharded(scene, cam, cfg, mesh)[0], "K2")
+    w, h, ss, depth = WHITTED["width"], WHITTED["height"], WHITTED["supersample"], WHITTED["trace_depth"]
+    room = WHITTED_SCENES["room"]("cuda")
+    res[f"whitted room {w}x{h} ss{ss}"] = _sharded_cell(
+        f"whitted room {w}x{h} {ss}x{ss} (K3: the explicit-ray entry per shard against the "
+        "frame entry)",
+        lambda: wk.render_whitted_cuda(room, w, h, ss, depth, device="cuda"),
+        lambda: rs.render_whitted_sharded(room, w, h, ss, depth, mesh=mesh), "K3")
+    room5 = room5_scene("procedural", device="cuda")
+    w5, h5 = W5_SIZES[-1]
+    res[f"room5 {w5}x{h5} spp{W5_SPP}"] = cell = _sharded_cell(
+        f"room5 {w5}x{h5} spp {W5_SPP} (K4, K5 inside)",
+        lambda: render_whitted5(room5, w5, h5, spp=W5_SPP, seed=W5_SEED, device="cuda"),
+        lambda: rs.render_whitted5_sharded(room5, w5, h5, spp=W5_SPP, seed=W5_SEED, mesh=mesh),
+        "K4")
+    check(cell["launches"]["K5"] == SHARDS, f"K5 ran in {cell['launches']['K5']} K4 launches")
+    # Each kernel's launches as counted in the sharded render that runs it
+    # (K5: the K4 launches of the room5 render, inside which its fetch ran).
+    k1_cell, k2_cell = (f"{name} {w}x{h} spp{spp}" for _, name, w, h, spp in SHARD_CELLS)
+    res["launches_per_sharded_render"] = {
+        "K1": res[k1_cell]["launches"]["K1"], "K2": res[k2_cell]["launches"]["K2"],
+        "K3": res[f"whitted room {WHITTED['width']}x{WHITTED['height']} ss{ss}"]["launches"]["K3"],
+        "K4": cell["launches"]["K4"], "K5": cell["launches"]["K5"]}
+
+    print("[S2] two processes on cuda:0 (gloo: initialize_multihost, all_gather), Cornell "
+          "512x512 x 8 spp through K1")
+    spec = get_spec("cornell")
+    scene, cam = spec.to_scene("cuda"), spec.to_camera("cuda")
+    cfg = RenderConfig(width=512, height=512, spp=8, seed=SEED)
+    t = time.perf_counter()
+    frame, lines = two_process_render(tmp)
+    wall = time.perf_counter() - t
+    one = ptk.render_cuda(scene, cam, cfg, device="cuda")[0].cpu().numpy()
+    same = bool(np.array_equal(frame, one))
+    one_ms, _ = e2e_ms(lambda: ptk.render_cuda(scene, cam, cfg, device="cuda")[0])
+    for line in lines:
+        print(f"  rank {line['rank']}: median e2e {line['ms']:.4f} ms (K1 launches per render "
+              f"{line['k1_launches_per_render']}), reps {[round(x, 4) for x in line['times']]}")
+    print(f"  two-process frame bitwise equal to one process: {same} (max |diff| "
+          f"{float(np.abs(frame - one).max()):.3g}); one process e2e {one_ms:.4f} ms; "
+          f"the call with process start {wall:.2f} s")
+    check(same, "two-process frame differs from the one-process render")
+    check(all(line["k1_launches_per_render"] == 1 for line in lines), f"rank launches {lines}")
+    res["two_process"] = {"bitwise": same, "rank_e2e_ms": [x["ms"] for x in lines],
+                          "single_e2e_ms": one_ms, "wall_s": wall}
+
+    print(f"[S3] gradients across {SHARDS} shards, Cornell {SHARD_GRAD['width']}x"
+          f"{SHARD_GRAD['height']} spp {SHARD_GRAD['spp']}, summed against one device "
+          f"(rtol {GRAD_SHARD_RTOL}, atol {GRAD_SHARD_ATOL})")
+    gcfg = RenderConfig(seed=SEED, **SHARD_GRAD)
+    target = torch.zeros((gcfg.height, gcfg.width, 3), device="cuda")
+    leaves, sc, c = grad_leaves(scene, cam)
+    loss1 = l2_image_loss(sc, c, target, gcfg)
+    grads1 = dict(zip(LEAVES, torch.autograd.grad(loss1, [leaves[k] for k in LEAVES])))
+    zero_counters()
+    t = time.perf_counter()
+    loss8, grads8 = rs.l2_image_loss_sharded(scene, cam, target, gcfg, mesh)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t
+    glaunch = read_counters()
+    worst = 0.0
+    for k in LEAVES:
+        a, b = grads8[k].double(), grads1[k].double()
+        check(bool(torch.isfinite(a).all()), f"sharded gradient of {k} not finite")
+        rel = ((a - b).abs() / b.abs().clamp_min(1e-30)).max().item()
+        ok = bool(torch.allclose(a, b, rtol=GRAD_SHARD_RTOL, atol=GRAD_SHARD_ATOL))
+        worst = max(worst, (a - b).abs().max().item())
+        print(f"  {k}: max |diff| {(a - b).abs().max().item():.4g}, max rel {rel:.4g}, "
+              f"|g| max {b.abs().max().item():.4g}, within tolerance {ok}")
+        check(ok, f"sharded gradient of {k} differs from the single-device one")
+    check(glaunch["K1"] == SHARDS, f"sharded gradient launches {glaunch}")
+    print(f"  loss {loss8.item():.9g} vs {loss1.item():.9g}; {glaunch['K1']} K1 launches; "
+          f"{grad_s:.3f} s")
+    res["gradients"] = {"max_abs_diff": worst, "k1_launches": glaunch["K1"], "s": grad_s}
+
+    print("[S4] capacity past 48 KB of shared memory")
+    spec5 = complex_scene(max_depth=5.0)
+    n5 = len(spec5.radius)
+    check(n5 == 3908, f"complex_scene(max_depth=5) has {n5} spheres")
+    zero_counters()
+    mism, st_mism, mean, plain_mean = k2_against_plain(spec5, 512, 512)
+    check(read_counters()["K2"] == 1, "the 3,908-sphere pass is not one K2 launch")
+    tab, camt, st5, pix, kw = pass_inputs(spec5, 512, 512, "pt", "mwc", "cuda")
+    smem = ptk.k2_shared_memory_bytes(n5, len(kw["light_indices"]))
+    k2_ms, _ = median_ms(lambda: ptk.pt_multi_pass(tab, camt, 0, *st5, pix, num_samples=1,
+                                                   **kw), 3)
+    print(f"  complex_scene(max_depth=5): {n5} spheres, {smem} B of shared memory a block; K2 "
+          f"512x512 x 1 spp {k2_ms:.4f} ms; against its plain version: mismatch {mism:.4%}, "
+          f"state mismatch {st_mism:.4%}, mean {mean:.6f} vs {plain_mean:.6f}")
+    check(mism <= MAX_MISMATCH and st_mism <= MAX_STATE_MISMATCH and
+          abs(mean - plain_mean) <= MEAN_RTOL * abs(plain_mean),
+          "the 3,908-sphere K2 pass misses K2's contract")
+    big = big_whitted_scene("cuda")
+    bw = BIG_WHITTED
+    frame_smem = wk.shared_memory_bytes(big.num_prims, 3 * wk.pixels_per_block(bw["supersample"])
+                                        * bw["supersample"] ** 2)
+    zero_counters()
+    frame = wk.whitted_frame_cuda(big, width=bw["width"], height=bw["height"],
+                                  supersample=bw["supersample"], trace_depth=bw["trace_depth"])
+    o, d = W.whitted_camera_rays_device(bw["width"], bw["height"], bw["supersample"], device="cuda")
+    acc3 = wk.whitted_trace_cuda(big, wk.rays_to_tiles(o, d), trace_depth=bw["trace_depth"])
+    via = wk.tiles_to_frame(acc3, bw["width"], bw["height"], bw["supersample"])
+    check(read_counters()["K3"] == 2, "the 1,000-primitive frame is not two K3 launches")
+    plain = W.render_whitted_scene(big, bw["width"], bw["height"], bw["supersample"],
+                                   bw["trace_depth"], ray_tile=1 << 13)
+    k3_ms, _ = median_ms(lambda: wk.whitted_frame_cuda(
+        big, width=bw["width"], height=bw["height"], supersample=bw["supersample"],
+        trace_depth=bw["trace_depth"]), 3)
+    for entry, img in (("frame", frame), ("rays", via)):
+        # Bitwise, NaN where the plain tracer has NaN: on this dense scene a
+        # few trees' directions grow in length until a Phong term is inf * 0,
+        # in the plain tracer, K3 and the JAX package's formulas alike.
+        nan = img.isnan()
+        same = bool(((img == plain) | (nan & plain.isnan())).all())
+        fin = ~nan
+        print(f"  Whitted {big.num_prims} primitives ({frame_smem} B a frame block), "
+              f"{bw['width']}x{bw['height']} ss {bw['supersample']} depth {bw['trace_depth']}, "
+              f"{entry} entry: bitwise equal to the plain tracer {same} (max |diff| "
+              f"{(img[fin] - plain[fin]).abs().max().item():.3g}; NaN components {int(nan.sum())}"
+              f" / plain {int(plain.isnan().sum())}), mean {img[fin].mean().item():.4f}")
+        check(same, f"K3 {entry} entry on {big.num_prims} primitives differs from the plain tracer")
+    print(f"  K3 frame entry {k3_ms:.4f} ms")
+    res["capacity"] = {"k2_spheres": n5, "k2_smem_bytes": smem, "k2_ms": k2_ms,
+                       "k2_mismatch": mism, "k3_prims": big.num_prims,
+                       "k3_smem_bytes": frame_smem, "k3_ms": k3_ms}
+
+    print(f"[S5] session: Cornell 512x512, {sum(SESSION_CALLS)} step_for calls "
+          f"({SESSION_BUDGET_S} s budget), a camera edit after {SESSION_CALLS[0]}")
+    spec = get_spec("cornell")
+    sess = RenderSession(spec.to_scene("cuda"), spec.to_camera("cuda"),
+                         RenderConfig(width=512, height=512, spp=1, seed=SEED))
+    zero_counters()
+    step_ms = []
+    for _ in range(SESSION_CALLS[0]):
+        t = time.perf_counter()
+        sess.step_for(SESSION_BUDGET_S)
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    before = sess.current_sample
+    sess.key("left")
+    check(sess.current_sample == 0, "an edit did not restart the accumulation")
+    kept = (sess.state[0].clone(), sess.state[1].clone(), torch.zeros_like(sess.state[2]), 0)
+    first = None
+    for _ in range(SESSION_CALLS[1]):
+        t = time.perf_counter()
+        img = sess.step_for(SESSION_BUDGET_S)
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        first = img if first is None else first
+    fresh = ptk.render_cuda(sess.scene, sess.camera, RenderConfig(width=512, height=512, spp=1,
+                                                                  seed=SEED), device="cuda",
+                            state=kept)[0]
+    same = bool(np.array_equal(first, fresh.cpu().numpy()))
+    launches = read_counters()
+    print(f"  samples {before} before the edit; after it the image is bitwise a fresh render "
+          f"from the kept seeds: {same}; launches {launches}; step_for ms: median "
+          f"{statistics.median(step_ms[:20]):.4f} (1 pass), {statistics.median(step_ms[20:25]):.4f}"
+          f" (ladder, past 20 samples)")
+    check(same, "the image after the edit is not a fresh render from the kept seeds")
+    check(launches["K1"] >= sum(SESSION_CALLS) and launches["K2"] == 0, f"session launches {launches}")
+    res["session"] = {"step_ms_1pass": statistics.median(step_ms[:20]),
+                      "step_ms_ladder": statistics.median(step_ms[20:25]),
+                      "samples_before_edit": before, "k1_launches": launches["K1"]}
+
+    print("[S6] checkpoint on the card; cli bench; render --scene .scn --profile")
+    cfg = RenderConfig(width=512, height=512, spp=4, seed=SEED)
+    scene, cam = spec.to_scene("cuda"), spec.to_camera("cuda")
+    _, st = ptk.render_cuda(scene, cam, cfg, device="cuda")
+    path = os.path.join(tmp, "ckpt.npz")
+    ck.save_render_state(path, st)
+    a, _ = ptk.render_cuda(scene, cam, cfg, device="cuda", state=st)
+    b, _ = ptk.render_cuda(scene, cam, cfg, device="cuda", state=ck.load_render_state(path))
+    same = bool(torch.equal(a, b))
+    print(f"  checkpoint save, load, resume 4 + 4 spp: bitwise {same}")
+    check(same, "the resumed checkpoint differs from the live resume")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["bench", "--scene", "cornell", "--width", "512", "--height", "512",
+                       "--spp", "8", "--reps", "3"])
+    lines = buf.getvalue().strip().splitlines()
+    check(rc == 0 and len(lines) == 1, f"bench exited {rc} with {len(lines)} lines")
+    bench = json.loads(lines[0])
+    print(f"  bench: {lines[0]}")
+    check(set(bench) == {"scene", "width", "height", "spp", "integrator", "device", "elapsed_s",
+                         "rays_per_sec"}, f"bench keys {sorted(bench)}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    scn = os.path.join(root, "tests", "fixtures", "scenes", "cornell_scn.scn")
+    prof = os.path.join(tmp, "profile")
+    png = os.path.join(tmp, "scn.png")
+    zero_counters()
+    rc = cli.main(["render", "--scene", scn, "--width", "512", "--height", "512", "--spp", "8",
+                   "--out", png, "--profile", prof])
+    launches = read_counters()
+    with open(png, "rb") as f:
+        check(rc == 0 and f.read(8) == b"\x89PNG\r\n\x1a\n", f"render of the .scn exited {rc}")
+    with open(os.path.join(prof, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    k1_events = [e for e in events if "pt_pass_kernel" in str(e.get("name", ""))]
+    print(f"  render --scene {os.path.relpath(scn, root)} --profile: launches {launches}; "
+          f"trace of {len(events)} events, {len(k1_events)} of them K1")
+    check(launches["K1"] == 1 and len(k1_events) >= 1, "the .scn render's trace holds no K1")
+    res["bench"] = bench
+    res["trace_events"] = len(events)
+    return res
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1905,6 +2350,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only-grad", action="store_true",
                     help="build, then run the K1 parity checks and the grad phase only "
                     "(a quick check while working on the differentiable path)")
+    ap.add_argument("--only-sharded", action="store_true",
+                    help="build, then run the sharded phase only (parallel/, the capacity, "
+                    "session, checkpoint and CLI checks)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("error: no CUDA device; chip_smoke.py runs on a GPU", file=sys.stderr)
@@ -1928,6 +2376,12 @@ def main(argv=None) -> int:
         print(json.dumps({"grad": grad_section(card)}))
         print(f"  (grad phase {time.perf_counter() - t:.1f} s)")
         return 0
+    if args.only_sharded:
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            print(json.dumps({"sharded": sharded_section(tmp)}))
+        print(f"  (sharded phase {time.perf_counter() - t:.1f} s)")
+        return 0
     t = time.perf_counter()
     kernels = [k1_section()]
     print(f"  (K1 phases {time.perf_counter() - t:.1f} s)")
@@ -1943,6 +2397,15 @@ def main(argv=None) -> int:
         errs, main_launches, cells, frac, diag, k5_shares = k4_section(tmp)
     kernels.extend(w5_summary(cells, k5, errs, main_launches, frac, diag, k5_shares))
     print(f"  (K4/K5 phases {time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        sharded = sharded_section(tmp)
+    for entry in kernels:
+        kernel = entry["name"].split()[0]
+        entry["launches_per_sharded_render"] = sharded["launches_per_sharded_render"][kernel]
+        if kernel == "K5":
+            entry["sharded_launches_are"] = "K4 launches on a textured scene (K5 runs inside)"
+    print(f"  (sharded phase {time.perf_counter() - t:.1f} s)")
     # The grad phase runs last: its profiler sessions hold ~25k kernels
     # each, and the sessions of the earlier phases, made after them, came
     # back without some of their events.
@@ -1955,6 +2418,7 @@ def main(argv=None) -> int:
 
     print(card)
     print(json.dumps({"grad": grad}))
+    print(json.dumps({"sharded": sharded}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

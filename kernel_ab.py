@@ -19,7 +19,10 @@ u8/256 200x200 TGA ones), K4 on room5 800x600 spp 8 with each of the two
 texture sets, K1 on Cornell 512x512 x 8 spp (PT/mwc and DL/mwc timed;
 PT/counter compared too), K2 on complex783 512x512 x 8 spp, K3 on the
 Whitted room frame (800x600, 3x3, depth 5). Old and new outputs are
-compared bitwise (K2 also cull on against cull off).
+compared bitwise (K2 also cull on against cull off); K2's two versions are
+also held to the plain version (chip_smoke.py's K2 contract, 1 spp) on
+complex783 and the 3,908-sphere ``complex_scene(max_depth=5)``, and timed
+on the latter at 512x512 x 1 spp.
 
 The old sources run through the current wrappers, so their C entry
 points must take the current arguments, with one exception made
@@ -67,7 +70,10 @@ def start_build(src_dir: Path):
     out_dir = src_dir / "_build"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in SOURCES:
+    # A copy of the current sources also builds K2's own library.
+    names = SOURCES + (("pt_blocked_kernel",) if (src_dir / "pt_blocked_kernel.cu").exists()
+                       else ())
+    for name in names:
         out = out_dir / f"{name}.so"
         cmd = [_build._nvcc(), *_build.flags(name), "-o", str(out), str(src_dir / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -82,8 +88,8 @@ def finish_build(procs):
     from se195_raytracer_tpu_torch.kernels import texel_kernel as tk
     from se195_raytracer_tpu_torch.kernels import whitted_kernel as wk
 
-    current = {"pt_kernel": ptk._kernel_lib(), "whitted_kernel": wk._kernel_lib(),
-               "whitted5_kernel": tk.kernel_lib()}
+    current = {"pt_kernel": ptk._kernel_lib(), "pt_blocked_kernel": ptk._k2_lib(),
+               "whitted_kernel": wk._kernel_lib(), "whitted5_kernel": tk.kernel_lib()}
     libs, logs = {}, {}
     for name, (proc, out) in procs.items():
         logs[name] = proc.communicate()[0]
@@ -175,6 +181,7 @@ def ab_k3(lib):
 
 def ab_k2(lib):
     from se195_raytracer_tpu_torch.kernels import pt_kernel as ptk
+    from se195_raytracer_tpu_torch.scenes.generator import complex_scene
 
     scene_tab, cam_tab, (s0, s1, acc), pix, kw = cs.pass_inputs(
         cs.COMPLEX, cs.WIDTH, cs.HEIGHT, "pt", "mwc", "cuda")
@@ -184,13 +191,31 @@ def ab_k2(lib):
         return ptk.pt_blocked_pass(scene_tab, cam_tab, 0, s0, s1, acc, pix, cull=cull, **kw)
 
     def old_k2():
-        with using(ptk, lib):
+        with using(ptk, lib, "_k2_lib"):
             return k2()
 
     new = k2()
     print(f"  K2 complex783 8 spp: new bitwise equal to old: {equal(old_k2(), new)}; new cull "
           f"on == new cull off: {equal(new, k2(cull=False))}")
     turns(f"K2 complex783 {cs.WIDTH}x{cs.HEIGHT} x {cs.SPP} spp", old_k2, k2,
+          timer=lambda fn: cs.launch_ms(fn, n=5))
+    # Each version against the plain version (chip_smoke.py's contract:
+    # state mismatch <= 1%), on complex783 and the 3,908-sphere scene.
+    big = complex_scene(max_depth=5.0)
+    for name, spec in (("complex783", cs.get_spec(cs.COMPLEX)), ("complex3908", big)):
+        for which in ("old", "new"):
+            with using(ptk, lib, "_k2_lib") if which == "old" else contextlib.nullcontext():
+                mism, st_mism, mean, plain_mean = cs.k2_against_plain(spec)
+            print(f"  K2 {which} {name} 1 spp against its plain version: mismatch {mism:.4%}, "
+                  f"state mismatch {st_mism:.4%}, mean {mean:.6f} vs {plain_mean:.6f}")
+    tab, camt, st, pix, kw = cs.pass_inputs(big, cs.WIDTH, cs.HEIGHT, "pt", "mwc", "cuda")
+    k2_big = lambda: ptk.pt_blocked_pass(tab, camt, 0, *st, pix, num_samples=1, **kw)  # noqa: E731
+
+    def old_big():
+        with using(ptk, lib, "_k2_lib"):
+            return k2_big()
+
+    turns(f"K2 complex3908 {cs.WIDTH}x{cs.HEIGHT} x 1 spp", old_big, k2_big,
           timer=lambda fn: cs.launch_ms(fn, n=5))
 
 
@@ -367,7 +392,10 @@ def main() -> int:
             for kernel, fn in (("K5", ab_k5), ("K4", ab_k4)):
                 if kernel in args.kernels:
                     fn(old["whitted5_kernel"], args.old_args, tmp)
-        for kernel, fn, source in (("K1", ab_k1, "pt_kernel"), ("K2", ab_k2, "pt_kernel"),
+        # K2's old library: its own build where the old sources have one
+        # (pt_blocked_kernel.cu), else pt_kernel's.
+        k2_old = "pt_blocked_kernel" if "pt_blocked_kernel" in old else "pt_kernel"
+        for kernel, fn, source in (("K1", ab_k1, "pt_kernel"), ("K2", ab_k2, k2_old),
                                    ("K3", ab_k3, "whitted_kernel")):
             if kernel in args.kernels:
                 fn(old[source])

@@ -45,9 +45,13 @@ def render_differentiable(
     config: RenderConfig,
     seed: Optional[int] = None,
     device=None,
+    pixels: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Differentiable render with FIXED RNG streams (the same seeds every
-    call, so the loss surface is deterministic). Returns [H, W, 3].
+    call, so the loss surface is deterministic). Returns [H, W, 3], or with
+    ``pixels=(lo, hi)`` the [hi - lo, 3] rows of the row-major pixels
+    lo..hi-1 only, forward and recompute both (a shard of a sharded
+    gradient, ``parallel.render_sharded.l2_image_loss_sharded``).
 
     With ``config.use_kernel`` and ``soft_edges == 0`` the forward runs in
     the kernel (``kernels/pt_kernel.render_cuda``: K1, or K2 above 96
@@ -68,9 +72,9 @@ def render_differentiable(
         return _KernelForward.apply(
             *(getattr(scene, k) for k in SCENE_LEAVES),
             *(getattr(camera, k) for k in CAMERA_LEAVES),
-            scene.refl, scene.light_indices, config,
+            scene.refl, scene.light_indices, config, pixels,
         )
-    return _render_plain_diff(scene, camera, config)
+    return _render_plain_diff(scene, camera, config, pixels=pixels)
 
 
 def _render_plain_diff(
@@ -79,6 +83,7 @@ def _render_plain_diff(
     config: RenderConfig,
     seed: Optional[int] = None,
     remat: bool = True,
+    pixels: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """The plain differentiable render (twin of ``_render_jnp_diff``):
     ``config.spp`` passes with the running mean ``(accum * k + r) / (k + 1)``
@@ -89,17 +94,22 @@ def _render_plain_diff(
     its recompute with the MWC generator whatever ``config.rng`` says, so
     under ``rng="counter"`` its backward differentiates another stream than
     its kernel forward evaluated; here the two draw the same stream. Take a
-    forward-mode JVP with ``remat=False``."""
+    forward-mode JVP with ``remat=False``. ``pixels=(lo, hi)`` renders only
+    the rows lo..hi-1, from the seeds the whole frame gives them, and
+    returns [hi - lo, 3]."""
     dev = scene.center.device
     basis = update_camera(camera, config.width, config.height)
     xs, ys = pixel_coords(config.width, config.height, device=dev)
     n = config.width * config.height
     state = init_state(config.rng, (n,), config.seed if seed is None else seed, device=dev)
-    accum = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    lo, hi = (0, n) if pixels is None else pixels
+    if pixels is not None:
+        xs, ys, state = xs[lo:hi], ys[lo:hi], (state[0][lo:hi], state[1][lo:hi])
+    accum = torch.zeros((hi - lo, 3), dtype=torch.float32, device=dev)
     for k in range(config.spp):
         r, state = _sample_once(scene, basis, config, xs, ys, state, remat=remat)
         accum = (accum * float(k) + r) / (float(k) + 1.0)
-    return accum.reshape(config.height, config.width, 3)
+    return accum if pixels is not None else accum.reshape(config.height, config.width, 3)
 
 
 class _KernelForward(torch.autograd.Function):
@@ -110,17 +120,20 @@ class _KernelForward(torch.autograd.Function):
     ``_render_pallas_diff_bwd``).
 
     The scene's and the camera's tensors are separate arguments: autograd
-    does not look inside a dataclass. ``refl``, ``light_indices`` and the
-    config are static."""
+    does not look inside a dataclass. ``refl``, ``light_indices``, the
+    config and ``pixels`` (None, or the (lo, hi) rows of a shard) are
+    static."""
 
     @staticmethod
-    def forward(ctx, center, radius, emission, color, orig, target, refl, light_indices, config):
+    def forward(ctx, center, radius, emission, color, orig, target, refl, light_indices, config,
+                pixels):
         from se195_raytracer_tpu_torch.kernels.pt_kernel import render_cuda
 
         scene = Scene(center, radius, emission, color, refl, light_indices)
-        img, _ = render_cuda(scene, Camera(orig, target), config, device=center.device)
+        img, _ = render_cuda(scene, Camera(orig, target), config, device=center.device,
+                             pixels=pixels)
         ctx.save_for_backward(center, radius, emission, color, orig, target)
-        ctx.refl, ctx.light_indices, ctx.config = refl, light_indices, config
+        ctx.refl, ctx.light_indices, ctx.config, ctx.pixels = refl, light_indices, config, pixels
         return img
 
     @staticmethod
@@ -130,11 +143,11 @@ class _KernelForward(torch.autograd.Function):
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, needs)]
             scene = Scene(*leaves[:4], ctx.refl, ctx.light_indices)
-            img = _render_plain_diff(scene, Camera(*leaves[4:]), ctx.config)
+            img = _render_plain_diff(scene, Camera(*leaves[4:]), ctx.config, pixels=ctx.pixels)
             wanted = [t for t, need in zip(leaves, needs) if need]
             grads = iter(torch.autograd.grad(img, wanted, grad_out, allow_unused=True))
         out = [next(grads) if need else None for need in needs]
-        return (*out, None, None, None)
+        return (*out, None, None, None, None)
 
 
 def l2_image_loss(scene: Scene, camera: Camera, target: torch.Tensor, config: RenderConfig,

@@ -8,7 +8,7 @@ camera y = height-1-r (the v-flip of rendering_kernel.cl:79).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -80,10 +80,15 @@ def render_steps(
     state: RenderState,
     config: RenderConfig,
     num_samples: int,
+    pixel_range: Optional[Tuple[int, int]] = None,
 ) -> RenderState:
-    """Advance the plain-path progressive render by ``num_samples`` passes."""
+    """Advance the plain-path progressive render by ``num_samples`` passes.
+    ``pixel_range=(lo, hi)``: the state holds pixels lo..hi-1 only (a shard
+    of a sharded render), which trace their own absolute pixel ids."""
     basis = update_camera(camera, config.width, config.height)
     xs, ys = pixel_coords(config.width, config.height, device=state.accum.device)
+    if pixel_range is not None:
+        xs, ys = xs[pixel_range[0]:pixel_range[1]], ys[pixel_range[0]:pixel_range[1]]
     accum, s0, s1, sample = state
     for _ in range(num_samples):
         r, (s0, s1) = _sample_once(scene, basis, config, xs, ys, (s0, s1))
@@ -130,3 +135,10 @@ def render(
         state = init_render_state(config, device=device)
     state = render_steps(scene, camera, state, config, config.spp)
     return state.accum.reshape(config.height, config.width, 3), state
+
+
+def render_image(scene: Scene, camera: Camera, config: RenderConfig, device=None) -> np.ndarray:
+    """Render ``config.spp`` samples and return the image as a host numpy
+    [H, W, 3] float32 array (twin of the JAX ``render_image``)."""
+    img, _ = render(scene, camera, config, device=device)
+    return img.cpu().numpy()

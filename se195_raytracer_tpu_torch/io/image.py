@@ -1,4 +1,4 @@
-"""Image writers, a numpy-only copy of the JAX package's: PPM
+"""Image writers and readers, a numpy-only copy of the JAX package's: PPM
 (displayfunc.cpp:254-270 / testapp.cpp:180-199 semantics), BMP
 (bitmap.c:8-75 semantics — 24bpp bottom-up with row padding), and PNG
 (via a minimal pure-python encoder, no external deps).
@@ -82,3 +82,55 @@ def write_image(image: np.ndarray, path: str) -> None:
     else:
         raise ValueError(f"unsupported image extension: {path}")
 
+
+
+def read_bmp(path: str) -> np.ndarray:
+    """Reads a 24-bpp uncompressed BMP (the layout write_bmp/bitmap.c:8-75
+    emits) -> uint8 [H, W, 3] RGB, top-down row order."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:2] != b"BM":
+        raise ValueError(f"{path}: not a BMP file")
+    (offset,) = struct.unpack_from("<I", data, 10)
+    w, h = struct.unpack_from("<ii", data, 18)
+    (bpp,) = struct.unpack_from("<H", data, 28)
+    (compression,) = struct.unpack_from("<I", data, 30)
+    if bpp != 24 or compression != 0:
+        raise ValueError(f"{path}: only uncompressed 24-bpp supported")
+    bottom_up = h > 0
+    h = abs(h)
+    row_bytes = w * 3
+    stride = row_bytes + (4 - row_bytes % 4) % 4
+    img = np.empty((h, w, 3), np.uint8)
+    for row in range(h):
+        src = offset + row * stride
+        bgr = np.frombuffer(data, np.uint8, row_bytes, src).reshape(w, 3)
+        dst = h - 1 - row if bottom_up else row
+        img[dst] = bgr[:, ::-1]
+    return img
+
+
+def read_ppm(path: str) -> np.ndarray:
+    """Read binary P6 PPM back into uint8 [H, W, 3]."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(b"P6"):
+        raise ValueError("not a P6 PPM")
+    # header: P6 <w> <h> <maxval> then raw bytes; comments allowed
+    parts = []
+    idx = 2
+    while len(parts) < 3:
+        while idx < len(data) and data[idx : idx + 1].isspace():
+            idx += 1
+        if data[idx : idx + 1] == b"#":
+            while data[idx : idx + 1] != b"\n":
+                idx += 1
+            continue
+        start = idx
+        while idx < len(data) and not data[idx : idx + 1].isspace():
+            idx += 1
+        parts.append(int(data[start:idx]))
+    idx += 1  # single whitespace after maxval
+    w, h, _maxval = parts
+    img = np.frombuffer(data, np.uint8, count=h * w * 3, offset=idx)
+    return img.reshape(h, w, 3)

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -60,9 +61,15 @@ def flags(name: str) -> Tuple[str, ...]:
     return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 
+def _source_bytes(name: str) -> bytes:
+    """The source's bytes and those of the csrc/ files it ``#include``s."""
+    text = (CSRC / f"{name}.cu").read_bytes()
+    local = re.findall(rb'^#include "([^"]+)"', text, flags=re.M)
+    return text + b"".join((CSRC / inc.decode()).read_bytes() for inc in local)
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags(name)).encode())
+    digest = hashlib.sha256(_source_bytes(name) + " ".join(flags(name)).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -56,8 +56,9 @@
 //     path of each pass; each lane's draws and sums keep their order.
 //
 // One thread per lane over all Rp lanes, pad lanes included, so the state
-// stays comparable with the JAX package's. K1's lane id is the absolute
-// pixel id (the identity layout of ray_layout); K2 reads the pixel id of
+// stays comparable with the JAX package's. K1's pixel id is its lane id plus
+// lane_offset (the identity layout of ray_layout; a shard of a sharded
+// render passes its first lane's absolute id); K2 reads the pixel id of
 // its lane from the pix table (the blocked layout: one 16 x 128 lane tile
 // is one 64 x 32 image block; pad lanes hold pixel id W*H, camera y = -1).
 //
@@ -78,6 +79,9 @@ constexpr int kThreadsK1 = 128;
 constexpr int kMinBlocksK1 = 8;
 constexpr int kThreadsK2 = 256;
 constexpr int kRows = 12;  // cx cy cz rad ex ey ez cr cg cb refl emissive
+// A block's dynamic shared memory without the kernel's opt-in; K2 opts in
+// above it (a scene of more than ~2,550 spheres).
+constexpr size_t kSmemDefault = 48 * 1024;
 constexpr int kBlock = 16;  // SPHERE_BLOCK: spheres per culled block
 constexpr int kHalf = kBlock / 2;  // spheres per half-block bound
 constexpr int kGroup = 4;   // GROUP_BLOCKS: blocks per group bound
@@ -88,6 +92,25 @@ constexpr float kTwoPi = 6.2831855f;   // float32(2 pi)
 constexpr float kFourPi = 12.566371f;  // float32(4 pi)
 
 enum { kMwc = 0, kCounter = 1 };
+
+// Whether K2 rounds every product and sum of its sphere test and of a
+// path's geometry (camera ray, hit point, normal, bounce direction) on its
+// own, as its plain version's separate tensor ops do. K2 ships from
+// csrc/pt_blocked_kernel.cu, which sets PT_K2_ROUNDED and includes this
+// file; this file's own build, K1's, leaves it unset, so its K2 entry has
+// K1's arithmetic. With nvcc's contraction into FMAs K2's paths left its
+// plain version's at grazing hits: on complex_scene(max_depth=5) (3,908
+// spheres) 1.50% of the lanes' RNG states differed after a 512x512 pass,
+// beyond K2's 1% contract; rounding the sphere test alone, 0.38%; with the
+// path's geometry too, 0.0046%, as many as with every operation rounded
+// (-fmad=false), which took 1.06-1.07x the time (kernel_ab.py). The rest
+// keeps contraction: a shadow ray's test moves only radiance, and the cull
+// is exact under either rounding (bound_hit).
+#ifndef PT_K2_ROUNDED
+#define PT_K2_ROUNDED 0
+#endif
+template <bool BLOCKED>
+constexpr bool kRounded = BLOCKED && PT_K2_ROUNDED;
 
 // One draw; advances (s0, s1). MWC: simplernd.h:34-48. Counter: the
 // SplitMix-style hash of (key = s0, counter = s1).
@@ -111,8 +134,32 @@ __device__ __forceinline__ float draw(uint32_t& s0, uint32_t& s1) {
   }
 }
 
+// a * b, a + b and a - b. With R false, nvcc contracts a product and the
+// sum it feeds into one FMA where it can; with R true each rounds on its
+// own (__fmul_rn and its kin are never contracted), as the plain version's
+// separate tensor ops round them.
+template <bool R>
+__device__ __forceinline__ float mul(float a, float b) {
+  if constexpr (R) return __fmul_rn(a, b); else return a * b;
+}
+template <bool R>
+__device__ __forceinline__ float add(float a, float b) {
+  if constexpr (R) return __fadd_rn(a, b); else return a + b;
+}
+template <bool R>
+__device__ __forceinline__ float sub(float a, float b) {
+  if constexpr (R) return __fsub_rn(a, b); else return a - b;
+}
+// a . b, summed left to right (core/types.dot3).
+template <bool R>
+__device__ __forceinline__ float dot(float ax, float ay, float az, float bx,
+                                     float by, float bz) {
+  return add<R>(add<R>(mul<R>(ax, bx), mul<R>(ay, by)), mul<R>(az, bz));
+}
+
 // SphereIntersect (geomfunc.h:32-59) on a (cx, cy, cz, rad) record:
 // distance, or 0 on a miss.
+template <bool R>
 __device__ __forceinline__ float sphere_t4(float4 s, float ox, float oy,
                                            float oz, float dx, float dy,
                                            float dz) {
@@ -120,8 +167,9 @@ __device__ __forceinline__ float sphere_t4(float4 s, float ox, float oy,
   const float opy = s.y - oy;
   const float opz = s.z - oz;
   const float r = s.w;
-  const float b = opx * dx + opy * dy + opz * dz;
-  const float det = b * b - (opx * opx + opy * opy + opz * opz) + r * r;
+  const float b = dot<R>(opx, opy, opz, dx, dy, dz);
+  const float det = add<R>(sub<R>(mul<R>(b, b), dot<R>(opx, opy, opz, opx, opy, opz)),
+                           mul<R>(r, r));
   if (!(det >= 0.0f)) return 0.0f;
   const float sq = sqrtf(det);
   const float t1 = b - sq;
@@ -140,7 +188,7 @@ __device__ __forceinline__ void nearest_all(const float4* geom, int n,
   id = 0;
 #pragma unroll 4
   for (int j = n - 1; j >= 0; --j) {
-    const float t = sphere_t4(geom[j], ox, oy, oz, dx, dy, dz);
+    const float t = sphere_t4<false>(geom[j], ox, oy, oz, dx, dy, dz);
     if (t != 0.0f && t < tb) {
       tb = t;
       id = j;
@@ -156,7 +204,7 @@ __device__ __forceinline__ bool any_hit_all(const float4* geom, int n,
                                             float maxt) {
 #pragma unroll 4
   for (int j = n - 1; j >= 0; --j) {
-    const float t = sphere_t4(geom[j], ox, oy, oz, dx, dy, dz);
+    const float t = sphere_t4<false>(geom[j], ox, oy, oz, dx, dy, dz);
     if (t != 0.0f && t < maxt) return true;
   }
   return false;
@@ -276,7 +324,7 @@ __device__ __forceinline__ void nearest_blocked(const Blocked& B, float ox,
         return bound_hit(bb, ox, oy, oz, dx, dy, dz, entry) && !(entry > tb);
       },
       [&](int j) {
-        const float t = sphere_t4(B.geom[j], ox, oy, oz, dx, dy, dz);
+        const float t = sphere_t4<kRounded<true>>(B.geom[j], ox, oy, oz, dx, dy, dz);
         if (t != 0.0f && t < tb) {
           tb = t;
           id = j;
@@ -298,7 +346,7 @@ __device__ __forceinline__ bool any_hit_blocked(const Blocked& B, float ox,
         return bound_hit(bb, ox, oy, oz, dx, dy, dz, entry) && entry < maxt;
       },
       [&](int j) {
-        const float t = sphere_t4(B.geom[j], ox, oy, oz, dx, dy, dz);
+        const float t = sphere_t4<kRounded<true>>(B.geom[j], ox, oy, oz, dx, dy, dz);
         return t != 0.0f && t < maxt;
       });
 }
@@ -337,21 +385,21 @@ struct Path {
 };
 
 // GenerateCameraRay (rendering_kernel.cl:29-51): 2 draws; a fresh path.
-template <int RNG>
+template <int RNG, bool R>
 __device__ __forceinline__ void camera(Path& path, uint32_t& s0, uint32_t& s1,
                                        const float* cs, float px, float py,
                                        float inv_w, float inv_h) {
   const float r1 = draw<RNG>(s0, s1);
   const float r2 = draw<RNG>(s0, s1);
-  const float kcx = (px + (r1 - 0.5f)) * inv_w - 0.5f;
-  const float kcy = (py + (r2 - 0.5f)) * inv_h - 0.5f;
-  const float rdx = cs[6] * kcx + cs[9] * kcy + cs[3];
-  const float rdy = cs[7] * kcx + cs[10] * kcy + cs[4];
-  const float rdz = cs[8] * kcx + cs[11] * kcy + cs[5];
-  path.ox = 0.1f * rdx + cs[0];
-  path.oy = 0.1f * rdy + cs[1];
-  path.oz = 0.1f * rdz + cs[2];
-  const float rinv = 1.0f / sqrtf(rdx * rdx + rdy * rdy + rdz * rdz);
+  const float kcx = sub<R>(mul<R>(px + (r1 - 0.5f), inv_w), 0.5f);
+  const float kcy = sub<R>(mul<R>(py + (r2 - 0.5f), inv_h), 0.5f);
+  const float rdx = add<R>(add<R>(mul<R>(cs[6], kcx), mul<R>(cs[9], kcy)), cs[3]);
+  const float rdy = add<R>(add<R>(mul<R>(cs[7], kcx), mul<R>(cs[10], kcy)), cs[4]);
+  const float rdz = add<R>(add<R>(mul<R>(cs[8], kcx), mul<R>(cs[11], kcy)), cs[5]);
+  path.ox = add<R>(mul<R>(0.1f, rdx), cs[0]);
+  path.oy = add<R>(mul<R>(0.1f, rdy), cs[1]);
+  path.oz = add<R>(mul<R>(0.1f, rdz), cs[2]);
+  const float rinv = 1.0f / sqrtf(dot<R>(rdx, rdy, rdz, rdx, rdy, rdz));
   path.dx = rdx * rinv;
   path.dy = rdy * rinv;
   path.dz = rdz * rinv;
@@ -373,21 +421,21 @@ __device__ __forceinline__ bool bounce(Path& path, uint32_t& s0, uint32_t& s1,
   float &rad_r = path.rad_r, &rad_g = path.rad_g, &rad_b = path.rad_b;
   float &thr_r = path.thr_r, &thr_g = path.thr_g, &thr_b = path.thr_b;
   bool& spec = path.spec;
+  constexpr bool R = kRounded<BLOCKED>;
   float tb;
   int id;
   nearest<BLOCKED>(B, ox, oy, oz, dx, dy, dz, tb, id);
   if (!(tb < kInf)) return false;  // miss: the path ends
 
-  const float hx = ox + tb * dx;
-  const float hy = oy + tb * dy;
-  const float hz = oz + tb * dz;
+  const float hx = add<R>(ox, mul<R>(tb, dx));
+  const float hy = add<R>(oy, mul<R>(tb, dy));
+  const float hz = add<R>(oz, mul<R>(tb, dz));
   const float nx0 = hx - sc[0 * n + id];
   const float ny0 = hy - sc[1 * n + id];
   const float nz0 = hz - sc[2 * n + id];
-  const float ninv =
-      1.0f / sqrtf(fmaxf(nx0 * nx0 + ny0 * ny0 + nz0 * nz0, 1e-38f));
+  const float ninv = 1.0f / sqrtf(fmaxf(dot<R>(nx0, ny0, nz0, nx0, ny0, nz0), 1e-38f));
   const float nx = nx0 * ninv, ny = ny0 * ninv, nz = nz0 * ninv;
-  const float dp = nx * dx + ny * dy + nz * dz;
+  const float dp = dot<R>(nx, ny, nz, dx, dy, dz);
   const float sgn = dp > 0.0f ? -1.0f : 1.0f;  // -sign(dp), sign(0) = -1
   const float nlx = sgn * nx, nly = sgn * ny, nlz = sgn * nz;
 
@@ -459,52 +507,53 @@ __device__ __forceinline__ bool bounce(Path& path, uint32_t& s0, uint32_t& s1,
     const float ux0 = ay * nlz;
     const float uy0 = -ax * nlz;
     const float uz0 = ax * nly - ay * nlx;
-    const float uinv = 1.0f / sqrtf(ux0 * ux0 + uy0 * uy0 + uz0 * uz0);
+    const float uinv = 1.0f / sqrtf(dot<R>(ux0, uy0, uz0, ux0, uy0, uz0));
     const float ux1 = ux0 * uinv, uy1 = uy0 * uinv, uz1 = uz0 * uinv;
-    const float vx = nly * uz1 - nlz * uy1;
-    const float vy = nlz * ux1 - nlx * uz1;
-    const float vz = nlx * uy1 - nly * ux1;
+    const float vx = sub<R>(mul<R>(nly, uz1), mul<R>(nlz, uy1));
+    const float vy = sub<R>(mul<R>(nlz, ux1), mul<R>(nlx, uz1));
+    const float vz = sub<R>(mul<R>(nlx, uy1), mul<R>(nly, ux1));
     const float ca = cosf(ang) * r2s;
     const float sa = sinf(ang) * r2s;
     const float wsc = sqrtf(fmaxf(0.0f, 1.0f - r2u));
-    dx = ux1 * ca + vx * sa + nlx * wsc;
-    dy = uy1 * ca + vy * sa + nly * wsc;
-    dz = uz1 * ca + vz * sa + nlz * wsc;
+    dx = dot<R>(ux1, vx, nlx, ca, sa, wsc);
+    dy = dot<R>(uy1, vy, nly, ca, sa, wsc);
+    dz = dot<R>(uz1, vz, nlz, ca, sa, wsc);
     thr_r = tcr;
     thr_g = tcg;
     thr_b = tcb;
     spec = false;
   } else if (mat == 1.0f) {
     // SPEC: mirror reflection (geomfunc.h:270-280).
-    dx = dx - k2dp * nx;
-    dy = dy - k2dp * ny;
-    dz = dz - k2dp * nz;
+    dx = sub<R>(dx, mul<R>(k2dp, nx));
+    dy = sub<R>(dy, mul<R>(k2dp, ny));
+    dz = sub<R>(dz, mul<R>(k2dp, nz));
     thr_r = tcr;
     thr_g = tcg;
     thr_b = tcb;
     spec = true;
   } else {
     // REFR: Fresnel-weighted Russian roulette (geomfunc.h:281-336).
-    const bool into = (nx * nlx + ny * nly + nz * nlz) > 0.0f;
+    const bool into = dot<R>(nx, ny, nz, nlx, nly, nlz) > 0.0f;
     const float nnt = into ? (1.0f / 1.5f) : 1.5f;
-    const float ddn = dx * nlx + dy * nly + dz * nlz;
-    const float cos2t = 1.0f - nnt * nnt * (1.0f - ddn * ddn);
+    const float ddn = dot<R>(dx, dy, dz, nlx, nly, nlz);
+    const float cos2t =
+        sub<R>(1.0f, mul<R>(nnt * nnt, sub<R>(1.0f, mul<R>(ddn, ddn))));
     float scale = 1.0f;
-    float ndx = dx - k2dp * nx;  // reflection, unless transmitted
-    float ndy = dy - k2dp * ny;
-    float ndz = dz - k2dp * nz;
+    float ndx = sub<R>(dx, mul<R>(k2dp, nx));  // reflection, unless transmitted
+    float ndy = sub<R>(dy, mul<R>(k2dp, ny));
+    float ndz = sub<R>(dz, mul<R>(k2dp, nz));
     if (!(cos2t < 0.0f)) {  // not total internal reflection
-      const float kk = (into ? 1.0f : -1.0f) * (ddn * nnt + sqrtf(cos2t));
-      const float tdx0 = nnt * dx - kk * nx;
-      const float tdy0 = nnt * dy - kk * ny;
-      const float tdz0 = nnt * dz - kk * nz;
-      const float tinv = 1.0f / sqrtf(fmaxf(
-          tdx0 * tdx0 + tdy0 * tdy0 + tdz0 * tdz0, 1e-38f));
+      const float kk = (into ? 1.0f : -1.0f) * add<R>(mul<R>(ddn, nnt), sqrtf(cos2t));
+      const float tdx0 = sub<R>(mul<R>(nnt, dx), mul<R>(kk, nx));
+      const float tdy0 = sub<R>(mul<R>(nnt, dy), mul<R>(kk, ny));
+      const float tdz0 = sub<R>(mul<R>(nnt, dz), mul<R>(kk, nz));
+      const float tinv =
+          1.0f / sqrtf(fmaxf(dot<R>(tdx0, tdy0, tdz0, tdx0, tdy0, tdz0), 1e-38f));
       const float tdx = tdx0 * tinv, tdy = tdy0 * tinv, tdz = tdz0 * tinv;
       const float r0 = 0.04f;  // float32(0.25 / 6.25)
-      const float c1 = 1.0f - (into ? -ddn : (tdx * nx + tdy * ny + tdz * nz));
-      const float re = r0 + (1.0f - r0) * c1 * c1 * c1 * c1 * c1;
-      const float pp = 0.25f + 0.5f * re;
+      const float c1 = 1.0f - (into ? -ddn : dot<R>(tdx, tdy, tdz, nx, ny, nz));
+      const float re = add<R>(r0, mul<R>((1.0f - r0) * c1 * c1 * c1 * c1, c1));
+      const float pp = add<R>(0.25f, mul<R>(0.5f, re));
       const float u_rr = draw<RNG>(s0, s1);
       if (u_rr < pp) {
         scale = re / pp;
@@ -542,8 +591,9 @@ pt_pass_kernel(const float* __restrict__ scene, int n,
                const float* __restrict__ cam, int start_sample,
                int num_samples, const uint32_t* s0_in,
                const uint32_t* s1_in, const float* acc_in, uint32_t* s0_out,
-               uint32_t* s1_out, float* acc_out, int rp, int width,
-               int height, float inv_w, float inv_h, int max_depth) {
+               uint32_t* s1_out, float* acc_out, int rp, int lane_offset,
+               int width, int height, float inv_w, float inv_h,
+               int max_depth) {
   extern __shared__ __align__(16) float smem[];
   // Both: a (cx, cy, cz, rad) record per sphere. K1: then the [kRows, n]
   // table sc. K2: then the half block, block and group bounds of Blocked;
@@ -595,7 +645,7 @@ pt_pass_kernel(const float* __restrict__ scene, int n,
   float acc_b = acc_in[2 * rp + lane];
   // Pixel coordinates with the framebuffer v-flip: row r is camera
   // y = height - 1 - r (rendering_kernel.cl:60-63). Pad lanes compute too.
-  const int p = BLOCKED ? pix[lane] : lane;
+  const int p = BLOCKED ? pix[lane] : lane_offset + lane;
   const float px = (float)(p % width);
   const float py = (float)((height - 1) - p / width);
 
@@ -617,7 +667,8 @@ pt_pass_kernel(const float* __restrict__ scene, int n,
     // order of the nested loops below: the result bits are theirs.
     int pass = 0, depth = 0;
     while (pass < num_samples) {
-      if (depth == 0) camera<RNG>(path, s0, s1, cs, px, py, inv_w, inv_h);
+      if (depth == 0)
+        camera<RNG, kRounded<BLOCKED>>(path, s0, s1, cs, px, py, inv_w, inv_h);
       if (depth < max_depth &&
           bounce<DIRECT_ONLY, RNG, BLOCKED>(path, s0, s1, sc, n, B, ls,
                                             n_lights) &&
@@ -629,7 +680,7 @@ pt_pass_kernel(const float* __restrict__ scene, int n,
     }
   } else {
     for (int pass = 0; pass < num_samples; ++pass) {
-      camera<RNG>(path, s0, s1, cs, px, py, inv_w, inv_h);
+      camera<RNG, kRounded<BLOCKED>>(path, s0, s1, cs, px, py, inv_w, inv_h);
       for (int depth = 0; depth < max_depth; ++depth) {
         if (!bounce<DIRECT_ONLY, RNG, BLOCKED>(path, s0, s1, sc, n, B, ls,
                                                n_lights))
@@ -669,6 +720,7 @@ struct PassArgs {
   uint32_t* s1_out;
   float* acc_out;
   int rp;
+  int lane_offset;
   int width;
   int height;
   float inv_w;
@@ -683,13 +735,27 @@ cudaError_t launch(const PassArgs& a, cudaStream_t stream) {
       sizeof(float4) * a.n +
       (BLOCKED ? sizeof(float4) * (3 * a.nb + a.ng) : sizeof(float) * kRows * a.n) +
       sizeof(float) * 12 + sizeof(int) * a.n_lights;
+  if (smem > kSmemDefault) {
+    // Past the default 48 KB a block's shared memory needs the kernel's
+    // opt-in, up to the device's limit (227 KB on sm_90).
+    int dev = 0, optin = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) return e;
+    if (smem > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
+    e = cudaFuncSetAttribute(pt_pass_kernel<DIRECT_ONLY, RNG, BLOCKED>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
   const int blocks = (a.rp + threads - 1) / threads;
   pt_pass_kernel<DIRECT_ONLY, RNG, BLOCKED><<<blocks, threads, smem, stream>>>(
       a.scene, a.n, a.halves, a.bounds, a.nb, a.groups, a.ng, a.rest, a.cull, a.pix,
       a.lights,
       a.n_lights,
       a.cam, a.start_sample, a.num_samples, a.s0_in, a.s1_in, a.acc_in,
-      a.s0_out, a.s1_out, a.acc_out, a.rp, a.width, a.height, a.inv_w,
+      a.s0_out, a.s1_out, a.acc_out, a.rp, a.lane_offset, a.width, a.height, a.inv_w,
       a.inv_h, a.max_depth);
   return cudaGetLastError();
 }
@@ -716,20 +782,22 @@ int dispatch(const PassArgs& a, int direct_only, int rng_counter,
 // acc: [3, rp] float32. In and out may not alias. Each returns
 // cudaGetLastError() after the launch (0 = cudaSuccess).
 
-// K1: lane id = pixel id; every sphere swept.
+// K1: pixel id = lane_offset + lane id; every sphere swept. lane_offset
+// comes last, after the stream, so the other arguments keep the positions
+// they had before it was added.
 extern "C" int pt_multi_pass_cuda(
     const float* scene, int n, const int* lights, int n_lights,
     const float* cam, int start_sample, int num_samples,
     const uint32_t* s0_in, const uint32_t* s1_in, const float* acc_in,
     uint32_t* s0_out, uint32_t* s1_out, float* acc_out, int rp, int width,
     int height, float inv_w, float inv_h, int max_depth, int direct_only,
-    int rng_counter, void* stream) {
+    int rng_counter, void* stream, int lane_offset) {
   const PassArgs a{scene, n, nullptr, nullptr, 0, nullptr, 0, nullptr, 0,
                    nullptr,
                    lights,
                    n_lights, cam,
                    start_sample, num_samples, s0_in, s1_in, acc_in, s0_out,
-                   s1_out, acc_out, rp, width, height, inv_w, inv_h,
+                   s1_out, acc_out, rp, lane_offset, width, height, inv_w, inv_h,
                    max_depth};
   return dispatch<false>(a, direct_only, rng_counter, stream);
 }
@@ -753,7 +821,7 @@ extern "C" int pt_blocked_pass_cuda(
                    lights,
                    n_lights, cam,
                    start_sample, num_samples, s0_in, s1_in, acc_in, s0_out,
-                   s1_out, acc_out, rp, width, height, inv_w, inv_h,
+                   s1_out, acc_out, rp, 0, width, height, inv_w, inv_h,
                    max_depth};
   return dispatch<true>(a, direct_only, rng_counter, stream);
 }

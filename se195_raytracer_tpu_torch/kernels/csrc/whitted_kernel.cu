@@ -517,8 +517,31 @@ whitted_frame_kernel(const float* __restrict__ table,
     const float* sub = color + c * rays + lp * ss2;
     float sum = sub[0];
     for (int k = 1; k < ss2; ++k) sum = sum + sub[k];
-    frame[3 * pix0 + e] = fminf(fmaxf(sum * scale, 0.0f), 255.0f);
+    // Clamped to 0..255 with a NaN kept, as jnp.clip and torch.clamp keep
+    // it (fmaxf alone would turn it into 0): on a dense scene a few trees'
+    // directions grow in length until a Phong term is inf * 0, which gives
+    // NaN in the JAX package's formulas and the plain version alike.
+    const float v = sum * scale;
+    frame[3 * pix0 + e] = v != v ? v : fminf(fmaxf(v, 0.0f), 255.0f);
   }
+}
+
+// A block's dynamic shared memory without the kernel's opt-in.
+constexpr size_t kSmemDefault = 48 * 1024;
+
+// Past the default 48 KB a block's shared memory needs the kernel's opt-in,
+// up to the device's limit (227 KB on sm_90): ~500 primitives and more.
+template <class Kernel>
+cudaError_t allow_smem(Kernel* kernel, size_t smem) {
+  if (smem <= kSmemDefault) return cudaSuccess;
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  if (smem > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 }  // namespace
@@ -531,6 +554,8 @@ extern "C" int whitted_trace_cuda(const float* table, const int* light, int n,
                                   const float* rays, float* acc, int rp,
                                   void* stream) {
   const size_t smem = Layout(n, 0).total;
+  const cudaError_t e = allow_smem(whitted_rays_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = (rp + kThreads - 1) / kThreads;
   whitted_rays_kernel<<<blocks, kThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
@@ -547,6 +572,8 @@ extern "C" int whitted_frame_cuda(const float* table, const int* light, int n,
   // Pixels per block (whitted_kernel.pixels_per_block).
   const int ppb = ss * ss < kThreads ? kThreads / (ss * ss) : 1;
   const size_t smem = Layout(n, 3 * ppb * ss * ss).total;
+  const cudaError_t e = allow_smem(whitted_frame_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = (width * height + ppb - 1) / ppb;
   whitted_frame_kernel<<<blocks, kThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(

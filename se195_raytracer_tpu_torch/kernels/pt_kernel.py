@@ -5,7 +5,10 @@ their plain PyTorch version (twin of se195_raytracer_tpu/kernels/pt_kernel.py).
 ``csrc/pt_kernel.cu``: K1 for scenes of at most ``UNROLL_MAX_SPHERES``
 spheres, K2 (``pt_blocked_pass``, a sweep in blocks of ``SPHERE_BLOCK``
 spheres that skips, per ray, the remainder, groups, blocks and half blocks
-whose bounds the ray cannot meet or enters beyond its best hit) above.
+whose bounds the ray cannot meet or enters beyond its best hit) above. K2
+runs from the same source built with its sphere test and path geometry
+rounded as the plain version rounds them (``csrc/pt_blocked_kernel.cu``),
+K1 from the source's own build.
 ``pt_pass_reference`` computes the same passes with ``generate_camera_rays``
 + ``radiance`` over the same lanes and state, and is what the wrappers run
 for tensors on the CPU (and what the tests and ``chip_smoke.py`` hold the
@@ -63,9 +66,10 @@ GROUP_BLOCKS = 4
 # sphere's t and of the bound's entry, which grows with the distance, can
 # never skip a hit (kReach in csrc/pt_kernel.cu, which argues it).
 CULL_REACH = 2e-3
-# The kernels keep the scene in shared memory without opting in to more
-# than the default 48 KB.
-_MAX_SMEM_BYTES = 48 * 1024
+# The kernels keep the scene in shared memory; K2 opts in past the default
+# 48 KB, up to the 227 KB a block may hold on sm_90. A larger scene would
+# need a sweep from global memory, which no kernel has.
+_MAX_SMEM_BYTES = 227 * 1024
 
 PTState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]
 
@@ -174,7 +178,7 @@ def bound_entry(bounds: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=32)
-def ray_layout(width: int, height: int, blocked: bool = False):
+def ray_layout(width: int, height: int, blocked: bool = False, tile_multiple: int = 1):
     """Lane <-> pixel layout of the kernels' state, as the JAX package lays
     it out (``ray_layout`` there, 16 x 128 lane tiles).
 
@@ -183,23 +187,31 @@ def ray_layout(width: int, height: int, blocked: bool = False):
     past the end), ``inv[pixel]`` = the lane holding that pixel (None for
     the identity layout, where lane == pixel and the image is a slice).
     ``blocked`` (K2's layout) makes each 16 x 128 lane tile one 64 x 32
-    image block, so neighbouring lanes trace neighbouring rays."""
+    image block, so neighbouring lanes trace neighbouring rays.
+    ``tile_multiple`` rounds the tile count up to a multiple of it, so that
+    a sharded render gives every shard the same whole tiles; the added
+    tiles are pad lanes."""
     r = width * height
+    m = tile_multiple
+
+    def round_tiles(ntiles):
+        return (ntiles + m - 1) // m * m
+
     if not blocked:
-        rp = (r + TILE - 1) // TILE * TILE
+        rp = round_tiles((r + TILE - 1) // TILE) * TILE
         return rp, np.arange(rp, dtype=np.int32), None
     th_ = 32
     tw_ = TILE // th_
     gw = (width + tw_ - 1) // tw_
     gh = (height + th_ - 1) // th_
-    rp = gw * gh * TILE
+    rp = round_tiles(gw * gh) * TILE
     lanes = np.arange(rp)
     ti, wi = lanes // TILE, lanes % TILE
     wy, wx = wi // tw_, wi % tw_
     tr, tc = ti // gw, ti % gw
     px = tc * tw_ + wx
     py = tr * th_ + wy
-    valid = (px < width) & (py < height)
+    valid = (px < width) & (py < height) & (ti < gw * gh)
     pix = np.where(valid, py * width + px, r).astype(np.int32)
     inv = np.empty(r, np.int64)
     inv[pix[valid]] = lanes[valid]
@@ -223,14 +235,15 @@ def pt_pass_reference(
     light_indices: Tuple[int, ...],
     rng: str = "mwc",
     on_sweep: Optional[Callable] = None,
+    lane_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K1 and K2 on the same inputs:
     ``num_samples`` passes of camera rays + ``radiance`` over all Rp lanes,
     each followed by the kernels' running mean
     ``acc = (acc * samp + rad) * (1 / (samp + 1))``. ``pix`` is the pixel id
-    of each lane (None: lane == pixel); a pad lane's id ``width*height``
-    gives camera y = -1, as in the JAX kernel. ``on_sweep`` is passed to
-    ``radiance``. Returns (s0, s1, acc)."""
+    of each lane (None: lane_offset + lane, K1's identity layout); a pad
+    lane's id ``width*height`` gives camera y = -1, as in the JAX kernel.
+    ``on_sweep`` is passed to ``radiance``. Returns (s0, s1, acc)."""
     scene = Scene(
         center=scene_tab[0:3].T,
         radius=scene_tab[3],
@@ -243,7 +256,9 @@ def pt_pass_reference(
     basis = CameraBasis(orig=cam[0:3], dir=cam[3:6], x=cam[6:9], y=cam[9:12])
     rp = s0.shape[0]
     if pix is None:
-        pix = torch.arange(rp, dtype=torch.int64, device=s0.device)
+        pix = torch.arange(lane_offset, lane_offset + rp, dtype=torch.int64, device=s0.device)
+    elif lane_offset:
+        raise ValueError("lane_offset is for K1's identity layout: pass it without pix")
     pix = pix.to(torch.int64)
     xs = pix % width
     ys = (height - 1) - pix // width
@@ -360,6 +375,24 @@ def culled_work_counter(scene_tab: torch.Tensor) -> Tuple[Callable, Dict[str, in
     return hook, work
 
 
+def k2_shared_memory_bytes(n: int, n_lights: int) -> int:
+    """Bytes of shared memory a K2 block holds for ``n`` spheres and
+    ``n_lights`` lights (``launch`` in csrc/pt_kernel.cu counts the same): a
+    (center, radius) record per sphere and per half block, block and group
+    bound, the camera row and the light list. Raises ValueError, naming the
+    sphere count, above what a block can hold."""
+    nb = n // SPHERE_BLOCK
+    ng = (nb + GROUP_BLOCKS - 1) // GROUP_BLOCKS
+    return _smem_bytes(n, 4 * (n + 3 * nb + ng), n_lights)
+
+
+def _smem_bytes(n: int, table_floats: int, n_lights: int) -> int:
+    smem = 4 * (table_floats + 12 + n_lights)
+    if smem > _MAX_SMEM_BYTES:
+        raise ValueError(f"{n} spheres need {smem} B of shared memory (> {_MAX_SMEM_BYTES})")
+    return smem
+
+
 def _check_cuda_inputs(scene_tab, cam_tab, s0, s1, acc, light_indices, table_floats):
     dev = s0.device
     for name, t, dtype in (
@@ -380,9 +413,7 @@ def _check_cuda_inputs(scene_tab, cam_tab, s0, s1, acc, light_indices, table_flo
         raise ValueError(f"state shapes {s0.shape}, {s1.shape}, {acc.shape} disagree")
     if scene_tab.shape[0] != 12 or cam_tab.numel() != 12:
         raise ValueError(f"scene_tab {tuple(scene_tab.shape)} / cam_tab {tuple(cam_tab.shape)}")
-    smem = 4 * (table_floats + 12 + len(light_indices))
-    if smem > _MAX_SMEM_BYTES:
-        raise ValueError(f"{n} spheres need {smem} B of shared memory (> {_MAX_SMEM_BYTES})")
+    _smem_bytes(n, table_floats, len(light_indices))
     if any(not 0 <= i < n for i in light_indices):
         raise ValueError(f"light index out of range in {light_indices}")
 
@@ -403,10 +434,14 @@ def pt_multi_pass(
     direct_only: bool,
     light_indices: Tuple[int, ...],
     rng: str = "mwc",
+    lane_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``num_samples`` progressive passes in ONE kernel launch: K1 (here) for
     at most ``UNROLL_MAX_SPHERES`` spheres, else K2 (``pt_blocked_pass``,
-    which needs ``pix``). K1 takes the identity layout: ``pix`` must be None.
+    which needs ``pix``). K1 takes the identity layout: ``pix`` must be None,
+    and lane i traces pixel ``lane_offset + i`` (a shard of a sharded render
+    passes the absolute id of its first lane). K2 reads absolute pixel ids
+    from ``pix`` and takes no offset.
 
     Tensors on the CPU take ``pt_pass_reference``; tensors on a CUDA device
     launch the kernel on the current stream (or raise). Inputs are not
@@ -421,11 +456,14 @@ def pt_multi_pass(
     if scene_tab.shape[1] > UNROLL_MAX_SPHERES:
         if pix is None:
             raise ValueError("K2 needs the lane -> pixel table pix of ray_layout(blocked=True)")
+        if lane_offset:
+            raise ValueError("K2 reads absolute pixel ids from pix: pass lane_offset=0")
         return pt_blocked_pass(scene_tab, cam_tab, start_sample, s0, s1, acc, pix, **kw)
     if pix is not None:
         raise ValueError("K1 runs the identity layout: pass pix=None")
     if s0.device.type == "cpu":
-        return pt_pass_reference(scene_tab, cam_tab, start_sample, s0, s1, acc, **kw)
+        return pt_pass_reference(scene_tab, cam_tab, start_sample, s0, s1, acc,
+                                 lane_offset=lane_offset, **kw)
     _check_launch(s0, rng)
     # K1's shared memory: a (center, radius) record per sphere and the table.
     _check_cuda_inputs(scene_tab, cam_tab, s0, s1, acc, light_indices, 16 * scene_tab.shape[1])
@@ -435,7 +473,7 @@ def pt_multi_pass(
         scene_tab.data_ptr(), scene_tab.shape[1], lights.data_ptr(), len(light_indices),
         cam_tab.data_ptr(), int(start_sample), int(num_samples),
         s0.data_ptr(), s1.data_ptr(), acc.data_ptr(), *(t.data_ptr() for t in outs),
-        *_frame_args(s0, width, height, max_depth, direct_only, rng),
+        *_frame_args(s0, width, height, max_depth, direct_only, rng), int(lane_offset),
     )
     if err != 0:
         raise RuntimeError(f"pt_multi_pass_cuda launch failed: cudaError {err}")
@@ -491,7 +529,7 @@ def pt_blocked_pass(
     if pix.device != s0.device or pix.dtype != torch.int32 or pix.shape != s0.shape:
         raise ValueError(f"pix: need int32 [{s0.shape[0]}] on {s0.device}")
     pix = pix.contiguous()
-    lib = _kernel_lib()
+    lib = _k2_lib()
     outs = (torch.empty_like(s0), torch.empty_like(s1), torch.empty_like(acc))
     err = lib.pt_blocked_pass_cuda(
         scene_tab.data_ptr(), scene_tab.shape[1], halves.data_ptr(), bounds.data_ptr(), nb,
@@ -554,25 +592,38 @@ def _frame_args(s0, width, height, max_depth, direct_only, rng):
 
 
 def _kernel_lib() -> ctypes.CDLL:
+    """K1's library: csrc/pt_kernel.cu."""
     from se195_raytracer_tpu_torch.kernels._build import load
 
-    lib = load("pt_kernel")
+    return _bind(load("pt_kernel"))
+
+
+def _k2_lib() -> ctypes.CDLL:
+    """K2's library: csrc/pt_kernel.cu built with PT_K2_ROUNDED
+    (csrc/pt_blocked_kernel.cu)."""
+    from se195_raytracer_tpu_torch.kernels._build import load
+
+    return _bind(load("pt_blocked_kernel"))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     if lib.pt_multi_pass_cuda.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         tail = [p, p, p, p, p, p, i, i, i, f, f, i, i, i, p]
-        lib.pt_multi_pass_cuda.argtypes = [p, i, p, i, p, i, i] + tail
+        lib.pt_multi_pass_cuda.argtypes = [p, i, p, i, p, i, i] + tail + [i]
         lib.pt_blocked_pass_cuda.argtypes = [p, i, p, p, i, p, i, p, i, p, p, i, p, i, i] + tail
         lib.pt_multi_pass_cuda.restype = lib.pt_blocked_pass_cuda.restype = ctypes.c_int
     return lib
 
 
-def init_pt_state(config, device, blocked: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def init_pt_state(config, device, blocked: bool = False,
+                  tile_multiple: int = 1) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fresh (s0, s1, acc) over the Rp lanes of ``ray_layout``. The real
     pixels are seeded exactly as the plain path seeds them and laid out in
     lane order; the pad lanes get the inert seed 2 (the least valid MWC
     seed; for the counter RNG key = ctr = 2), as render_pallas does."""
     r = config.width * config.height
-    rp, pix, _ = ray_layout(config.width, config.height, blocked)
+    rp, pix, _ = ray_layout(config.width, config.height, blocked, tile_multiple)
     s0, s1 = init_state(config.rng, (r,), config.seed, device="cpu")
     pad = torch.full((max(rp - r, 1),), 2, dtype=torch.uint32)
     if blocked:
@@ -591,6 +642,7 @@ def render_cuda(
     num_samples: Optional[int] = None,
     state: Optional[PTState] = None,
     device=None,
+    pixels: Optional[Tuple[int, int]] = None,
 ):
     """Progressive render through K1, or K2 above ``UNROLL_MAX_SPHERES``
     spheres (twin of ``render_pallas``).
@@ -599,7 +651,12 @@ def render_cuda(
     CUDA device the passes run in the kernel; on the CPU in its plain
     version. ``device=None`` means CUDA and raises if there is none. Inputs
     that require a gradient raise (``kernels/_guard.py``): differentiate
-    through ``driver.optimize.render_differentiable``."""
+    through ``driver.optimize.render_differentiable``.
+
+    ``pixels=(lo, hi)`` renders only the row-major pixels lo..hi-1, from
+    the fresh seeds the whole frame gives them (K1 at lane offset lo, K2
+    over pix = lo..hi-1), and returns their [hi - lo, 3] rows in place of
+    the image: the forward of a shard of a sharded differentiable render."""
     if config.soft_edges > 0.0:
         raise NotImplementedError(
             "soft_edges > 0: K1 and K2 implement the hard estimator; render the relaxed "
@@ -611,20 +668,33 @@ def render_cuda(
     r = w * h
     spp = config.spp if num_samples is None else num_samples
     blocked = scene.num_spheres > UNROLL_MAX_SPHERES
-    _, pix_np, inv_np = ray_layout(w, h, blocked)
-    if state is None:
-        state = init_pt_state(config, device, blocked) + (0,)
+    lane_offset = 0
+    if pixels is None:
+        _, pix_np, inv_np = ray_layout(w, h, blocked)
+        pix = torch.from_numpy(pix_np).to(device) if blocked else None
+        if state is None:
+            state = init_pt_state(config, device, blocked) + (0,)
+    else:
+        lo, hi = pixels
+        if state is not None or not 0 <= lo < hi <= r:
+            raise ValueError(f"pixels={pixels}: a range inside 0..{r}, rendered from fresh "
+                             "seeds (state=None)")
+        s0, s1 = init_state(config.rng, (r,), config.seed, device="cpu")
+        acc = torch.zeros((3, hi - lo), dtype=torch.float32, device=device)
+        state = (s0[lo:hi].to(device), s1[lo:hi].to(device), acc, 0)
+        pix = torch.arange(lo, hi, dtype=torch.int32, device=device) if blocked else None
+        lane_offset = 0 if blocked else lo
     s0, s1, acc, start = state
 
-    scene_tab = pack_scene(scene)
-    cam_tab = pack_camera(update_camera(camera, w, h))
-    pix = torch.from_numpy(pix_np).to(device) if blocked else None
     s0, s1, acc = pt_multi_pass(
-        scene_tab, cam_tab, start, s0, s1, acc, pix,
+        pack_scene(scene), pack_camera(update_camera(camera, w, h)), start, s0, s1, acc, pix,
         num_samples=spp, width=w, height=h, max_depth=config.max_depth,
         direct_only=config.integrator == "dl",
-        light_indices=scene.light_indices, rng=config.rng,
+        light_indices=scene.light_indices, rng=config.rng, lane_offset=lane_offset,
     )
+    state = (s0, s1, acc, start + spp)
+    if pixels is not None:
+        return acc.T, state
     flat = acc.reshape(3, -1)
     flat = flat[:, torch.from_numpy(inv_np).to(device)] if blocked else flat[:, :r]
-    return flat.T.reshape(h, w, 3), (s0, s1, acc, start + spp)
+    return flat.T.reshape(h, w, 3), state

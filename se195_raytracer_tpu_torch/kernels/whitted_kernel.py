@@ -48,7 +48,10 @@ TILE = 8 * LANES
 MAX_TRACE_DEPTH = 8
 # Threads per block of both entries (kThreads).
 THREADS = 256
-_MAX_SMEM_BYTES = 48 * 1024
+# Both entries opt in past the default 48 KB of shared memory, up to the
+# 227 KB a block may hold on sm_90 (~2,490 primitives at 3x3). A larger
+# scene would need a sweep from global memory, which K3 does not have.
+_MAX_SMEM_BYTES = 227 * 1024
 
 
 def pixels_per_block(supersample: int) -> int:
@@ -57,12 +60,17 @@ def pixels_per_block(supersample: int) -> int:
     return max(1, THREADS // (supersample * supersample))
 
 
-def smem_bytes(n: int, color_floats: int) -> int:
+def shared_memory_bytes(n: int, color_floats: int = 0) -> int:
     """Dynamic shared memory of one block (the kernel's Layout): five
     16-byte records, 1 / radius, a kind word and an occluder slot per
-    primitive, the list lengths, the camera row and the block's ray
-    colors."""
-    return 92 * n + 8 + 48 + 4 * color_floats
+    primitive, the list lengths, the camera row and the block's ray colors
+    (the frame entry's ``color_floats`` is ``3 * pixels_per_block(ss) *
+    ss^2``, the explicit-ray entry's 0). Raises ValueError, naming the
+    primitive count, above what a block can hold."""
+    smem = 92 * n + 8 + 48 + 4 * color_floats
+    if smem > _MAX_SMEM_BYTES:
+        raise ValueError(f"{n} primitives need {smem} B of shared memory (> {_MAX_SMEM_BYTES})")
+    return smem
 
 
 def pack_whitted_scene(scene: WhittedScene) -> torch.Tensor:
@@ -108,9 +116,7 @@ def _scene_args(scene: WhittedScene, trace_depth: int, hit_bias: float, color_fl
     if not 0 <= trace_depth <= MAX_TRACE_DEPTH:
         raise ValueError(f"trace_depth {trace_depth} outside 0..{MAX_TRACE_DEPTH}")
     n = scene.num_prims
-    smem = smem_bytes(n, color_floats)
-    if smem > _MAX_SMEM_BYTES:
-        raise ValueError(f"{n} primitives need {smem} B of shared memory (> {_MAX_SMEM_BYTES})")
+    shared_memory_bytes(n, color_floats)
     table, light, _ = _packed(scene)
     return (table.data_ptr(), light.data_ptr(), n, float(np.float32(hit_bias)), int(trace_depth))
 

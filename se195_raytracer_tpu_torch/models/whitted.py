@@ -369,19 +369,23 @@ def whitted_camera_rays_device(
     supersample: int = 3,
     cam_row: Optional[torch.Tensor] = None,
     device=None,
+    ray_range: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Primary rays made on the device from the ray index (the same float32
     formula as ``whitted_camera_rays``), for any camera row
-    (``whitted_camera_row``; None = the reference's fixed viewpoint)."""
+    (``whitted_camera_row``; None = the reference's fixed viewpoint).
+    ``ray_range=(lo, hi)``: only the rays lo..hi-1 (a shard of a sharded
+    frame)."""
     device = resolve_device(device)
     ss2 = supersample * supersample
-    r = width * height * ss2
+    lo, hi = (0, width * height * ss2) if ray_range is None else ray_range
+    r = hi - lo
     if cam_row is None:
         cam_row = torch.from_numpy(whitted_camera_row())
     c = cam_row.to(device=device, dtype=torch.float32).reshape(12)
     dxs, dys, hdx, hdy = window_steps(width, height)
     half = supersample // 2
-    lin = torch.arange(r, dtype=torch.int64, device=device)
+    lin = torch.arange(lo, hi, dtype=torch.int64, device=device)
     pix = lin // ss2
     sub = lin - pix * ss2
     txi = sub // supersample

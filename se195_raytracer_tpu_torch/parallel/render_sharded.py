@@ -1,0 +1,355 @@
+"""Sharded and multi-process rendering (twin of
+se195_raytracer_tpu/parallel/render_sharded.py).
+
+The reference never left devices[0] (smallptGPU.cpp:463-467). Here the
+pixel (or ray) axis is split into the contiguous lane ranges of a
+``parallel.mesh.Mesh``, the scene is replicated, and every shard renders
+its range with ABSOLUTE pixel or ray ids: the seeds are drawn over the
+whole frame and then sliced, K1 takes the shard's first lane id as its
+lane offset, K2 reads absolute ids from its pix table, and the Whitted
+families make a shard's rays from the absolute ray index. The forward
+pass therefore needs no communication and the frame, the shards' outputs
+in shard order (concatenated in-process, ``all_gather`` across
+processes), is bitwise the single-device render. Gradients of a loss over
+the pixels are sums of the shards' gradients: ``all_reduce(SUM)`` across
+processes, a sum over shards in-process (where the JAX package's XLA
+inserts a ``psum``).
+
+A sharded state holds the lanes of this process's shards in shard order:
+the whole frame in-process, the rank's own shard across processes.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from se195_raytracer_tpu_torch.core.config import RenderConfig
+from se195_raytracer_tpu_torch.core.types import Camera, Scene, update_camera
+from se195_raytracer_tpu_torch.driver.render import RenderState, init_render_state, render_steps
+from se195_raytracer_tpu_torch.parallel.mesh import (
+    Mesh,
+    gather_shards,
+    make_mesh,
+    replicate,
+    shard_bounds,
+    sum_across,
+)
+
+
+def initialize_multihost(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    backend: str = "gloo",
+) -> None:
+    """Bring up ``torch.distributed`` for a render over several processes.
+    Call once per process before building ``make_mesh(process_group=True)``.
+
+    ``coordinator_address`` is ``host:port`` of rank 0 (``tcp://`` init);
+    None reads ``MASTER_ADDR``/``MASTER_PORT``, and unset counts read
+    ``WORLD_SIZE``/``RANK``, as ``torchrun`` sets them. The default backend
+    is gloo: it runs on the CPU, and it takes several ranks on one GPU,
+    which NCCL refuses; across GPUs pass ``backend="nccl"``."""
+    import torch.distributed as dist
+
+    if num_processes is None:
+        num_processes = int(os.environ["WORLD_SIZE"])
+    if process_id is None:
+        process_id = int(os.environ["RANK"])
+    init = "env://" if coordinator_address is None else f"tcp://{coordinator_address}"
+    dist.init_process_group(backend, init_method=init, world_size=num_processes,
+                            rank=process_id)
+
+
+def _local(t: torch.Tensor, mesh: Mesh, dim: int = 0):
+    """``t``'s lanes (along ``dim``) of each local shard: ``t`` holds the
+    local shards' lanes in shard order."""
+    per = t.shape[dim] // len(mesh.local_shards)
+    return [t.narrow(dim, i * per, per) for i in range(len(mesh.local_shards))]
+
+
+def _frame_part(t: torch.Tensor, mesh: Mesh, dim: int = 0) -> torch.Tensor:
+    """The lanes of this process's shards of a whole-frame tensor ``t``."""
+    if not mesh.process_group:
+        return t
+    (k,) = mesh.local_shards
+    per = t.shape[dim] // mesh.size
+    return t.narrow(dim, k * per, per)
+
+
+def shard_render_state(state: RenderState, mesh: Mesh) -> RenderState:
+    """A whole-frame plain-path state as ``render_sharded`` holds it: the
+    lanes of this process's shards, on the device of its first shard."""
+    dev = mesh.devices[mesh.local_shards[0]]
+    return RenderState(
+        accum=_frame_part(state.accum, mesh).to(dev),
+        s0=_frame_part(state.s0, mesh).to(dev),
+        s1=_frame_part(state.s1, mesh).to(dev),
+        sample=state.sample,
+    )
+
+
+def render_sharded(
+    scene: Scene,
+    camera: Camera,
+    config: RenderConfig,
+    mesh: Optional[Mesh] = None,
+    state: Optional[RenderState] = None,
+):
+    """Progressive render on the plain path with the pixel axis sharded over
+    ``mesh`` (default: every CUDA device). Returns ([H, W, 3] radiance,
+    state); pass the state back to continue. Raises ValueError when the
+    shards do not divide the pixel count."""
+    if mesh is None:
+        mesh = make_mesh()
+    bounds = shard_bounds(config.width * config.height, mesh)
+    if state is None:
+        state = shard_render_state(init_render_state(config, device="cpu"), mesh)
+    scenes, cams = replicate(scene, mesh), replicate(camera, mesh)
+    parts = zip(_local(state.accum, mesh), _local(state.s0, mesh), _local(state.s1, mesh))
+    outs = []
+    for k, (accum, s0, s1) in zip(mesh.local_shards, parts):
+        dev = mesh.devices[k]
+        st = RenderState(accum.to(dev), s0.to(dev), s1.to(dev), state.sample)
+        outs.append(render_steps(scenes[dev], cams[dev], st, config, config.spp,
+                                 pixel_range=bounds[k]))
+    dev0 = mesh.devices[mesh.local_shards[0]]
+    img = gather_shards([o.accum for o in outs], mesh).reshape(config.height, config.width, 3)
+    new_state = RenderState(*(torch.cat([getattr(o, f).to(dev0) for o in outs])
+                              for f in ("accum", "s0", "s1")), outs[0].sample)
+    return img, new_state
+
+
+def render_cuda_sharded(
+    scene: Scene,
+    camera: Camera,
+    config: RenderConfig,
+    mesh: Optional[Mesh] = None,
+    state=None,
+):
+    """Progressive render through K1 (K2 above 96 spheres) with the lanes
+    sharded over ``mesh`` (twin of ``render_pallas_sharded``): one launch
+    per shard. The layout is ``ray_layout(..., tile_multiple=mesh.size)``,
+    so every shard holds whole 16 x 128 tiles; the seeds are drawn over the
+    whole frame in lane order and sliced. A K1 shard passes its first lane
+    as the lane offset, a K2 shard its slice of the pix table; both trace
+    absolute pixel ids, so the image is bitwise ``render_cuda``'s.
+
+    Returns ([H, W, 3] radiance, (s0, s1, acc, sample)); the state holds
+    the lanes of this process's shards. CPU tensors run the kernels' plain
+    version."""
+    from se195_raytracer_tpu_torch.kernels.pt_kernel import (
+        LANES,
+        UNROLL_MAX_SPHERES,
+        init_pt_state,
+        pack_camera,
+        pack_scene,
+        pt_multi_pass,
+        ray_layout,
+    )
+
+    if config.soft_edges > 0.0:
+        raise NotImplementedError(
+            "soft_edges > 0: K1 and K2 implement the hard estimator; render the relaxed "
+            "one with render_sharded")
+    if mesh is None:
+        mesh = make_mesh()
+    w, h = config.width, config.height
+    blocked = scene.num_spheres > UNROLL_MAX_SPHERES
+    rp, pix_np, inv_np = ray_layout(w, h, blocked, mesh.size)
+    per = rp // mesh.size
+    if state is None:
+        s0, s1, acc = init_pt_state(config, "cpu", blocked, mesh.size)
+        s0, s1 = _frame_part(s0, mesh), _frame_part(s1, mesh)
+        acc = _frame_part(acc.reshape(3, rp), mesh, dim=1)
+        start = 0
+    else:
+        s0, s1, acc, start = state
+        acc = acc.reshape(3, -1)
+    scenes, cams = replicate(scene, mesh), replicate(camera, mesh)
+    tabs = {dev: (pack_scene(scenes[dev]), pack_camera(update_camera(cams[dev], w, h)))
+            for dev in scenes}
+    outs = []
+    parts = zip(_local(s0, mesh), _local(s1, mesh), _local(acc, mesh, dim=1))
+    for k, (s0k, s1k, acck) in zip(mesh.local_shards, parts):
+        dev = mesh.devices[k]
+        lo = k * per
+        pix = torch.from_numpy(pix_np[lo:lo + per]).to(dev) if blocked else None
+        outs.append(pt_multi_pass(
+            *tabs[dev], start, s0k.to(dev).contiguous(), s1k.to(dev).contiguous(),
+            acck.to(dev).contiguous().reshape(3, per // LANES, LANES), pix,
+            num_samples=config.spp, width=w, height=h, max_depth=config.max_depth,
+            direct_only=config.integrator == "dl", light_indices=scene.light_indices,
+            rng=config.rng, lane_offset=0 if blocked else lo,
+        ))
+    dev0 = mesh.devices[mesh.local_shards[0]]
+    flat = gather_shards([o[2].reshape(3, per) for o in outs], mesh, dim=1)
+    flat = flat[:, torch.from_numpy(inv_np).to(dev0)] if blocked else flat[:, :w * h]
+    new_state = (torch.cat([o[0].to(dev0) for o in outs]),
+                 torch.cat([o[1].to(dev0) for o in outs]),
+                 torch.cat([o[2].to(dev0) for o in outs], dim=1),
+                 start + config.spp)
+    return flat.T.reshape(h, w, 3), new_state
+
+
+def _ray_shards(n: int, mesh: Mesh):
+    """(per-shard lane count, [(lo, hi)] of each local shard's real rays):
+    n rays padded with inert lanes to a multiple of the shard count."""
+    per = (n + (-n) % mesh.size) // mesh.size
+    return per, [(min(k * per, n), min((k + 1) * per, n)) for k in mesh.local_shards]
+
+
+def _pad_rows(t: torch.Tensor, rows: int, value=0) -> torch.Tensor:
+    if t.shape[0] == rows:
+        return t
+    fill = torch.full((rows - t.shape[0],) + tuple(t.shape[1:]), value, dtype=t.dtype,
+                      device=t.device)
+    return torch.cat([t, fill])
+
+
+def render_whitted_sharded(
+    scene,
+    width: int = 800,
+    height: int = 600,
+    supersample: int = 3,
+    trace_depth: int = 5,
+    hit_bias: float = 0.0,
+    mesh: Optional[Mesh] = None,
+    ray_tile: Optional[int] = None,
+    use_kernel: bool = True,
+) -> torch.Tensor:
+    """Whitted (3.2.0x) frame with the ray axis sharded over ``mesh``. Each
+    shard makes its contiguous range of subsample rays from the absolute
+    ray index (``whitted_camera_rays_device``), padded with inert rays
+    (o = d = 0) to equal shards, and traces them through K3's explicit-ray
+    entry (``use_kernel``; its plain version on the CPU) or the plain
+    tracer in chunks of ``ray_tile``; the ray colours are gathered and
+    reduced as the single-device frame reduces them. Returns [H, W, 3]
+    float32 in 0..255."""
+    from se195_raytracer_tpu_torch.kernels.whitted_kernel import rays_to_tiles, whitted_trace_cuda
+    from se195_raytracer_tpu_torch.models.whitted import (
+        reduce_subsamples,
+        whitted_camera_rays_device,
+        whitted_trace,
+    )
+
+    if mesh is None:
+        mesh = make_mesh()
+    n = width * height * supersample * supersample
+    per, ranges = _ray_shards(n, mesh)
+    tile = ray_tile or min(per, 256 * 1024)
+    scenes = replicate(scene, mesh)
+    accs = []
+    for k, (lo, hi) in zip(mesh.local_shards, ranges):
+        dev = mesh.devices[k]
+        o, d = whitted_camera_rays_device(width, height, supersample, device=dev,
+                                          ray_range=(lo, hi))
+        o, d = _pad_rows(o, per), _pad_rows(d, per)
+        if use_kernel:
+            acc = whitted_trace_cuda(scenes[dev], rays_to_tiles(o, d), trace_depth=trace_depth,
+                                     hit_bias=hit_bias)
+            accs.append(acc.reshape(3, -1)[:, :per].T)
+        else:
+            accs.append(torch.cat([
+                whitted_trace(scenes[dev], o[a:a + tile], d[a:a + tile], trace_depth, hit_bias)
+                for a in range(0, per, tile)]))
+    acc = gather_shards(accs, mesh)[:n]
+    return reduce_subsamples(acc, width, height, supersample)
+
+
+def render_whitted5_sharded(
+    scene,
+    width: int = 320,
+    height: int = 240,
+    spp: int = 1,
+    trace_depth: Optional[int] = None,
+    seed: int = 0,
+    mesh: Optional[Mesh] = None,
+    use_kernel: bool = True,
+) -> torch.Tensor:
+    """raytracer5-family frame with the ray axis sharded over ``mesh``. The
+    counter-RNG state (key, counter) is made over the whole frame from the
+    absolute ray id (``_init_state5_np``; the rays and state are cached on
+    the device per size and seed, as ``render_whitted5`` caches them) and
+    sliced; pad lanes get the state 2 and zero rays. With
+    ``use_kernel`` each shard runs its ``spp`` passes in one K4 launch (K5
+    inside; the plain tracer on the CPU), else on the plain tracer; the
+    mean is per lane, so the frame is bitwise ``render_whitted5``'s.
+    Returns [H, W, 3] float32 linear radiance."""
+    from se195_raytracer_tpu_torch.models.whitted5 import (
+        TRACEDEPTH5,
+        _cached_rays5,
+        _cached_state5,
+        _trace,
+    )
+
+    if trace_depth is None:
+        trace_depth = TRACEDEPTH5
+    if mesh is None:
+        mesh = make_mesh()
+    r = width * height
+    per, ranges = _ray_shards(r, mesh)
+    scenes = replicate(scene, mesh)
+    cols = []
+    for k, (lo, hi) in zip(mesh.local_shards, ranges):
+        dev = mesh.devices[k]
+        # The frame's rays and state on the shard's device, made once per
+        # size and seed (as render_whitted5 caches them), then sliced.
+        o, d = _cached_rays5(width, height, (0.5, 0.5), str(dev))
+        key, ctr = _cached_state5(r, seed, str(dev))
+        ok, dk = _pad_rows(o[lo:hi], per), _pad_rows(d[lo:hi], per)
+        state = (_pad_rows(key[lo:hi], per, 2), _pad_rows(ctr[lo:hi], per, 2))
+        col, _ = _trace(scenes[dev], ok, dk, state, use_kernel, spp=spp, trace_depth=trace_depth)
+        cols.append(col)
+    return gather_shards(cols, mesh)[:r].reshape(height, width, 3)
+
+
+def l2_image_loss_sharded(
+    scene: Scene,
+    camera: Camera,
+    target: torch.Tensor,
+    config: RenderConfig,
+    mesh: Optional[Mesh] = None,
+    names: Sequence[str] = ("center", "radius", "emission", "color", "orig", "target"),
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The L2 image loss ``mean((img - target)^2)`` and its gradient with
+    respect to the named scene and camera fields, with the pixels sharded
+    over ``mesh`` (the twin of the JAX package's psum'd sharded gradient).
+    Each shard renders its own pixels through
+    ``driver.optimize.render_differentiable(pixels=...)`` (the kernel
+    forward and the recompute both cover the shard only) and takes its
+    part of the loss; the shards' losses and gradients are summed, over
+    shards in-process and by ``all_reduce(SUM)`` across processes.
+    Returns (loss, {name: gradient}) on the device of the first local
+    shard."""
+    from se195_raytracer_tpu_torch.driver.optimize import (
+        CAMERA_LEAVES,
+        merge,
+        render_differentiable,
+    )
+
+    if mesh is None:
+        mesh = make_mesh()
+    n = config.width * config.height
+    bounds = shard_bounds(n, mesh)
+    flat_target = target.reshape(n, 3)
+    scale = 1.0 / (3 * n)
+    dev0 = mesh.devices[mesh.local_shards[0]]
+    loss = torch.zeros((), dtype=torch.float32, device=dev0)
+    grads: Dict[str, torch.Tensor] = {}
+    for k in mesh.local_shards:
+        dev = mesh.devices[k]
+        lo, hi = bounds[k]
+        leaves = {name: getattr(camera if name in CAMERA_LEAVES else scene, name)
+                  .detach().to(dev).requires_grad_(True) for name in names}
+        sc, cam = merge(scene.to(dev), camera.to(dev), leaves)
+        img = render_differentiable(sc, cam, config, device=dev, pixels=(lo, hi))
+        part = ((img - flat_target[lo:hi].to(dev)) ** 2).sum() * scale
+        for name, g in zip(names, torch.autograd.grad(part, list(leaves.values()))):
+            g = g.to(dev0)
+            grads[name] = g if name not in grads else grads[name] + g
+        loss = loss + part.detach().to(dev0)
+    return sum_across(loss, mesh), {name: sum_across(g, mesh) for name, g in grads.items()}

@@ -68,6 +68,27 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["render", "--width", "8", "--height", "8", "--out", ""])
 
+    # The sharded renders (a mesh of None is every CUDA device), the session
+    # and render_image.
+    from se195_raytracer_tpu_torch.driver.render import render_image
+    from se195_raytracer_tpu_torch.driver.session import RenderSession
+    from se195_raytracer_tpu_torch.parallel import render_sharded as rs
+    from se195_raytracer_tpu_torch.scenes.whitted5_scenes import room5_scene
+    from se195_raytracer_tpu_torch.scenes.whitted_scenes import WHITTED_SCENES
+
+    cfg = RenderConfig(width=8, height=8)
+    for fn in (rs.render_sharded, rs.render_cuda_sharded):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(scene, camera, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rs.render_whitted_sharded(WHITTED_SCENES["room"]("cpu"), 8, 8, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rs.render_whitted5_sharded(room5_scene("procedural", device="cpu"), 8, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RenderSession(scene, camera, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        render_image(scene, camera, cfg)
+
 
 def test_cli_renders_on_cpu_when_asked(tmp_path):
     from se195_raytracer_tpu_torch import cli

@@ -315,11 +315,16 @@ def test_k2_matches_plain_on_cuda(rng):
 @pytest.mark.cuda
 @pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA device")
 @pytest.mark.parametrize("integrator,rng", CASES)
-def test_k1_records_bitwise_on_cuda(integrator, rng):
+def test_k1_records_bitwise_on_cuda(integrator, rng, monkeypatch):
     """K1's sweep over its float4 sphere records, unrolled, gives the bits of
     K2's blocked sweep (cull on and off) on the same lanes: the Cornell
     scene, 64x32, 3 spp, every lane's pixel its own (the identity layout);
-    and 1 + 2 passes give the bits of 3."""
+    and 1 + 2 passes give the bits of 3. Both sweeps come from one build,
+    K1's: K2 ships from csrc/pt_kernel.cu built with its sphere test and
+    path geometry rounded as its plain version rounds them
+    (csrc/pt_blocked_kernel.cu), otherwise than K1, and is held to its plain
+    version instead."""
+    monkeypatch.setattr(ptk, "_k2_lib", ptk._kernel_lib)
     spec = get_scene("cornell")
     scene, camera = spec.to_scene("cuda"), spec.to_camera("cuda")
     cfg = RenderConfig(width=64, height=32, spp=1, seed=4, integrator=integrator, rng=rng)
