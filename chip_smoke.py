@@ -69,7 +69,7 @@ S. the sharded paths (parallel/), 8 shards on cuda:0, each image held
    a checkpoint saved, loaded and resumed, bitwise; ``cli bench``'s JSON
    line; ``render --scene tests/fixtures/scenes/cornell_scn.scn
    --profile DIR``, whose trace holds K1;
-G. last, the differentiable path (driver/optimize.py), Cornell 512x512, PT, mwc,
+G. the differentiable path (driver/optimize.py), Cornell 512x512, PT, mwc,
    seed 0: ``render_differentiable`` at spp 2 and 8 is one K1 launch and no
    plain ``radiance`` (a counting wrapper this script installs), its image
    under K1's contract against the plain primal, its gradients (L2 to the
@@ -84,8 +84,20 @@ G. last, the differentiable path (driver/optimize.py), Cornell 512x512, PT, mwc,
    idle share and peak memory, and an spp-2 step's peak memory with remat
    on and off; whitted5 soft (room5 320x240, the plain tracer) and its
    light-position gradient;
+T. last, K3's debug taps (``whitted_taps_cuda``: tres, attr and shade on
+   room and grid at 800x600 3x3, hit_bias 0 and 0.005, each bitwise the
+   plain ``whitted_taps``; each tap's ms beside its bound); MT19937 (1,000
+   chained ``twist_torch`` + ``temper_torch`` blocks on the card from seeds
+   0, 1, 5489 and 0xF2710812, bitwise numpy); room5's floor texture
+   recovered at 160x120 for 5 steps through
+   examples/whitted5_texture_recovery_torch.py (loss and seen-texel MAE
+   fall), the step ms, the idle share over a step, the peak memory, and the
+   first gradient at 40x30 on the card against the CPU's (within 1e-5 of
+   its scale); the K3 entry of the kernels line gains the taps' launches
+   and ms;
 13. prints the grad phase's numbers (``{"grad": {...}}``), the sharded
-    phase's (``{"sharded": {...}}``), one JSON line per kernel
+    phase's (``{"sharded": {...}}``), phase T's (``{"taps"}``,
+    ``{"mt19937"}``, ``{"texrec"}``), one JSON line per kernel
     (``{"kernels": [...]}``, K1-K5, K1 and K2 with their launches per
     differentiable forward, each with its launches in the sharded render
     that runs it, as counted there; K5's are the room5 K4 launches it ran
@@ -93,7 +105,8 @@ G. last, the differentiable path (driver/optimize.py), Cornell 512x512, PT, mwc,
     and, last, ``{"ok": true, "device": {...}}``.
 
 ``--only-grad`` builds the kernels and runs K1's first check and the grad
-phase only; ``--only-sharded`` the sharded phase only.
+phase only; ``--only-sharded`` the sharded phase only; ``--only-t`` phase
+T only.
 
 Any failed check exits non-zero before the last line. Imports nothing of
 JAX or of the JAX package. Exits non-zero without a result when no CUDA
@@ -334,7 +347,8 @@ def zero_counters():
     from se195_raytracer_tpu_torch.kernels import whitted_kernel as wk
 
     for fn in (ptk.pt_multi_pass, ptk.pt_blocked_pass, wk.whitted_trace_cuda,
-               wk.whitted_frame_cuda, w5k.whitted5_trace_cuda, tk.texel_fetch_cuda):
+               wk.whitted_frame_cuda, wk.whitted_taps_cuda, w5k.whitted5_trace_cuda,
+               tk.texel_fetch_cuda):
         fn.launches = 0
     w5k.whitted5_trace_cuda.texel_launches = 0
 
@@ -348,7 +362,8 @@ def read_counters():
     from se195_raytracer_tpu_torch.kernels import whitted_kernel as wk
 
     return {"K1": ptk.pt_multi_pass.launches, "K2": ptk.pt_blocked_pass.launches,
-            "K3": wk.whitted_trace_cuda.launches + wk.whitted_frame_cuda.launches,
+            "K3": (wk.whitted_trace_cuda.launches + wk.whitted_frame_cuda.launches
+                   + wk.whitted_taps_cuda.launches),
             "K4": w5k.whitted5_trace_cuda.launches,
             "K5": w5k.whitted5_trace_cuda.texel_launches + tk.texel_fetch_cuda.launches}
 
@@ -2341,6 +2356,184 @@ def sharded_section(tmp):
     return res
 
 
+# Phase T: K3's debug taps on room and grid at the Whitted size (hit_bias 0
+# and 0.005, each tap bitwise its plain version, models/whitted.whitted_taps);
+# MT19937 (MT_TWISTS chained twist_torch + temper_torch blocks of each seed
+# of MT_SEEDS on the card, bitwise numpy); room5's floor texture recovered
+# at the example's 160x120 (examples/whitted5_texture_recovery_torch.py) for
+# TEXREC_STEPS steps, and its first gradient on the card against the CPU's
+# at TEXREC_GRAD_SIZE x 3/4 (one CPU gradient at 160x120 takes ~15 s).
+MT_SEEDS = (0, 1, 5489, 0xF2710812)
+MT_TWISTS = 1000
+TEXREC = dict(size=160, lr=0.5)
+TEXREC_STEPS = 5
+TEXREC_GRAD_SIZE = 40
+# The plain tracer's texture gradient on the card against the CPU's: the
+# same float32 operations, but the card sums a texel's contributions with
+# atomics in another order, and its sin/cos/exp/pow differ from the CPU's
+# by ulps. Within 1e-5 of the gradient's largest texel.
+TEXREC_GRAD_RTOL = 1e-5
+
+
+def taps_section():
+    """Phase T1: K3's tap entry (``whitted_taps_cuda``) against the plain
+    version on the card, bitwise, on room and grid at 800x600 3x3 for
+    hit_bias 0 and 0.005; each tap's ms (CUDA events) on room beside its
+    bound: one nearest sweep a ray, and for ``shade`` the lights of the
+    lanes that hit a non-light and their shadow tests (the plain version's
+    count), at K3's op counts."""
+    import torch
+
+    from se195_raytracer_tpu_torch.kernels import whitted_kernel as wk
+    from se195_raytracer_tpu_torch.models import whitted as W
+    from se195_raytracer_tpu_torch.scenes.whitted_scenes import WHITTED_SCENES
+
+    w, h, ss = WHITTED["width"], WHITTED["height"], WHITTED["supersample"]
+    print(f"[T1] K3's debug taps against whitted_taps on the card: {w}x{h}, {ss}x{ss}")
+    o, d = W.whitted_camera_rays_device(w, h, ss, device="cuda")
+    tiles = wk.rays_to_tiles(o, d)
+    flat = tiles.reshape(6, -1)
+    differing = {}
+    zero_counters()
+    for name in ("room", "grid"):
+        scene = WHITTED_SCENES[name]("cuda")
+        for bias in (0.0, 0.005):
+            for tap in W.TAPS:
+                got = wk.whitted_taps_cuda(scene, tiles, tap=tap, hit_bias=bias).reshape(3, -1).T
+                plain = W.whitted_taps(scene, flat[0:3].T, flat[3:6].T, tap, bias)
+                bad = int((got.view(torch.int32) != plain.view(torch.int32)).any(dim=-1).sum())
+                differing[f"{name} hit_bias {bias} {tap}"] = bad
+                print(f"  {name} hit_bias {bias} {tap}: {bad} of {got.shape[0]} rays differ "
+                      f"in any bit; finite {bool(torch.isfinite(got).all())}")
+                check(bad == 0, f"tap {tap} on {name}, hit_bias {bias}: {bad} rays differ")
+    launches = read_counters()["K3"]
+    check(launches == len(differing), f"{launches} K3 launches for {len(differing)} tap calls")
+
+    scene = WHITTED_SCENES["room"]("cuda")
+    rays = w * h * ss * ss
+    planes = sum(1 for t in scene.ptype if t == 0)
+    sweep = rays * (planes * W_OPS_PLANE + (scene.num_prims - planes) * W_OPS_SPHERE)
+    work = {}
+    idx, _, _, _, _ = W.whitted_shade(scene, o, d, work=work,
+                                      live=torch.ones(rays, dtype=torch.bool, device="cuda"))
+    is_light = torch.tensor(scene.is_light, device="cuda")
+    lit = int(((idx >= 0) & ~is_light[idx.clamp(min=0)]).sum())
+    shade_ops = (sweep + lit * len(scene.light_indices) * W_OPS_LIGHT
+                 + work["shadow_tests"] * min(W_OPS_PLANE, W_OPS_SPHERE))
+    nbytes = flat.numel() * 4 + 3 * flat.shape[1] * 4  # rays in, one triple out
+    per_tap = {}
+    for tap in W.TAPS:
+        ms, reps = median_ms(lambda: wk.whitted_taps_cuda(scene, tiles, tap=tap))
+        print(f"  tap {tap} (room, hit_bias 0): {ms:.4f} ms (reps "
+              f"{['%.4f' % t for t in reps]}), {rays / ms * 1e3:.4g} rays/s")
+        bound_ms, bound_by = bound(shade_ops if tap == "shade" else sweep, nbytes, ms,
+                                   f"tap {tap}")
+        per_tap[tap] = {"ms": ms, "reps_ms": reps, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "share_of_bound": bound_ms / ms}
+    print(f"  shade tap work: {lit} rays hit a non-light, {work['shadow_tests']} shadow tests")
+    return {"differing_rays": differing, "launches": launches, "per_tap": per_tap,
+            "lit_rays": lit, "shadow_tests": work["shadow_tests"]}
+
+
+def mt_section():
+    """Phase T2: ``twist_torch`` and ``temper_torch`` on the card, MT_TWISTS
+    chained blocks from each seed of MT_SEEDS, bitwise the numpy copy
+    (``_twist_np``, ``temper``); the time per tempered 624-word block."""
+    import numpy as np
+    import torch
+
+    from se195_raytracer_tpu_torch.core import mt19937 as MT
+
+    print(f"[T2] MT19937: {MT_TWISTS} chained twist_torch + temper_torch blocks on the card "
+          "against numpy")
+    out = {}
+    for seed in MT_SEEDS:
+        state = MT.seed_ref(seed).mt
+        want, blocks = state, []
+        for _ in range(MT_TWISTS):
+            want = MT._twist_np(want)
+            blocks.append(MT.temper(want))
+        mt = torch.from_numpy(state.astype(np.int64)).cuda()
+        got = []
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(MT_TWISTS):
+            mt = MT.twist_torch(mt)
+            got.append(MT.temper_torch(mt))
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / MT_TWISTS
+        same = np.array_equal(torch.stack(got).cpu().numpy(), np.stack(blocks).astype(np.int64))
+        print(f"  seed {seed:#x}: bitwise numpy {same}; {ms:.4f} ms a block "
+              f"({MT.N / ms * 1e3:.4g} words/s, host-bound launches)")
+        check(same, f"MT19937 seed {seed:#x}: the card's blocks differ from numpy's")
+        out[f"{seed:#x}"] = {"bitwise": same, "ms_per_block": ms}
+    return out
+
+
+def texrec_section():
+    """Phase T3: examples/whitted5_texture_recovery_torch.py's recovery at
+    160x120 on the card for TEXREC_STEPS steps (the loss and the seen-texel
+    MAE fall), its step time, the card's idle share over one step
+    (profiler), the peak memory; the first gradient on the card against the
+    CPU's at TEXREC_GRAD_SIZE within TEXREC_GRAD_RTOL of its scale."""
+    import importlib.util
+
+    import torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "whitted5_texture_recovery_torch",
+        os.path.join(root, "examples", "whitted5_texture_recovery_torch.py"))
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    size, lr = TEXREC["size"], TEXREC["lr"]
+    print(f"[T3] texture recovery on the card: room5 {size}x{size * 3 // 4}, {TEXREC_STEPS} "
+          f"Adam steps at lr {lr}")
+    torch.cuda.reset_peak_memory_stats()
+    run = ex.recover(size, TEXREC_STEPS, lr, "cuda", log=lambda line: print(f"  {line}"))
+    peak = torch.cuda.max_memory_allocated()
+    check(run["losses"][-1] < run["losses"][0], f"texture recovery: loss {run['losses']}")
+    check(run["maes"][-1] < run["mae0"], f"texture recovery: MAE {run['mae0']} -> {run['maes']}")
+
+    rec = ex.FloorRecovery(size, lr, "cuda")
+    step_ms, step_all = host_ms(lambda: rec.step().item(), reps=3)
+    for _ in range(3):  # a session that caught no device event is made again
+        wall, busy, _ = device_profile(lambda: rec.step().item(), reps=1, host=False)
+        if busy > 0.0:
+            break
+    check(busy > 0.0, "texture recovery: the profiler caught no device event")
+    idle = max(0.0, 1 - busy / step_ms)
+    print(f"  step {step_ms:.3f} ms (reps {['%.3f' % t for t in step_all]}; the run's "
+          f"{['%.1f' % t for t in run['step_ms']]}); card busy {busy:.3f} ms a step, idle share "
+          f"{idle:.2%}; peak memory {peak} B")
+
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        r = ex.FloorRecovery(TEXREC_GRAD_SIZE, lr, dev)
+        grads[dev] = torch.autograd.grad(r.loss(), r.tex)[0].cpu().double()
+    scale = grads["cpu"].abs().max().item()
+    err = (grads["cuda"] - grads["cpu"]).abs().max().item()
+    rel_l2 = ((grads["cuda"] - grads["cpu"]).norm() / grads["cpu"].norm()).item()
+    print(f"  first gradient at {TEXREC_GRAD_SIZE}x{TEXREC_GRAD_SIZE * 3 // 4}, card against "
+          f"CPU: max |diff| {err:.4g} of scale {scale:.4g} ({err / scale:.3g}), relative L2 "
+          f"{rel_l2:.3g}, bitwise {bool(torch.equal(grads['cuda'], grads['cpu']))}")
+    check(err <= TEXREC_GRAD_RTOL * scale, f"texture gradient: card against CPU {err} > "
+          f"{TEXREC_GRAD_RTOL} x {scale}")
+    return {"size": f"{size}x{size * 3 // 4}", "steps": TEXREC_STEPS, "lr": lr,
+            "losses": run["losses"], "mae0": run["mae0"], "maes": run["maes"],
+            "seen_frac": run["seen_frac"], "run_step_ms": run["step_ms"], "step_ms": step_ms,
+            "busy_ms": busy, "idle_share": idle, "peak_mem_bytes": peak,
+            "grad_check": {"size": f"{TEXREC_GRAD_SIZE}x{TEXREC_GRAD_SIZE * 3 // 4}",
+                           "max_abs_err": err, "scale": scale, "rel_l2": rel_l2,
+                           "rtol": TEXREC_GRAD_RTOL}}
+
+
+def phase_t():
+    """Phase T: T1 (taps), T2 (MT19937), T3 (texture recovery)."""
+    return taps_section(), mt_section(), texrec_section()
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2353,6 +2546,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only-sharded", action="store_true",
                     help="build, then run the sharded phase only (parallel/, the capacity, "
                     "session, checkpoint and CLI checks)")
+    ap.add_argument("--only-t", action="store_true",
+                    help="build, then run phase T only (K3's debug taps, MT19937, texture "
+                    "recovery)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("error: no CUDA device; chip_smoke.py runs on a GPU", file=sys.stderr)
@@ -2381,6 +2577,14 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             print(json.dumps({"sharded": sharded_section(tmp)}))
         print(f"  (sharded phase {time.perf_counter() - t:.1f} s)")
+        return 0
+    if args.only_t:
+        t = time.perf_counter()
+        taps, mt, texrec = phase_t()
+        print(json.dumps({"taps": taps}))
+        print(json.dumps({"mt19937": mt}))
+        print(json.dumps({"texrec": texrec}))
+        print(f"  (phase T {time.perf_counter() - t:.1f} s)")
         return 0
     t = time.perf_counter()
     kernels = [k1_section()]
@@ -2415,10 +2619,22 @@ def main(argv=None) -> int:
         "k1_launches_per_forward"]
     kernels[1]["launches_per_differentiable_forward"] = grad["k2"]["k2_launches_per_forward"]
     print(f"  (grad phase {time.perf_counter() - t:.1f} s)")
+    # Phase T after the grad phase, for the same reason: its profiler
+    # session holds a gradient step's thousands of kernels.
+    t = time.perf_counter()
+    taps, mt, texrec = phase_t()
+    kernels[2]["tap_launches"] = taps["launches"]
+    kernels[2]["tap_replaces"] = ("se195_raytracer_tpu/kernels/whitted_kernel.py:128, :356-370, "
+                                  ":505-532")
+    kernels[2]["taps"] = taps["per_tap"]
+    print(f"  (phase T {time.perf_counter() - t:.1f} s)")
 
     print(card)
     print(json.dumps({"grad": grad}))
     print(json.dumps({"sharded": sharded}))
+    print(json.dumps({"taps": taps}))
+    print(json.dumps({"mt19937": mt}))
+    print(json.dumps({"texrec": texrec}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

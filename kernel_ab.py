@@ -10,7 +10,8 @@ commit, on one GPU, in one process.
 
 Builds the current sources (``kernels/_build.py``) and the old ones (same
 nvcc flags, into ``<old>/_build/``), prints each kernel's ptxas registers,
-stack frame and spills, then times each kernel in turns (old, new, new,
+stack frame and spills and whether its SASS (``cuobjdump -sass``) is the
+old one's instruction for instruction, then times each kernel in turns (old, new, new,
 old; CUDA events around back-to-back launches, median of 5 after a
 warm-up) at the shapes of chip_smoke.py's main paths: K5 alone on its
 three lane sets (2^18 and 2^22 random lanes, K4's own fetches at room5
@@ -19,7 +20,8 @@ u8/256 200x200 TGA ones), K4 on room5 800x600 spp 8 with each of the two
 texture sets, K1 on Cornell 512x512 x 8 spp (PT/mwc and DL/mwc timed;
 PT/counter compared too), K2 on complex783 512x512 x 8 spp, K3 on the
 Whitted room frame (800x600, 3x3, depth 5). Old and new outputs are
-compared bitwise (K2 also cull on against cull off); K2's two versions are
+compared bitwise (K2 also cull on against cull off; K3 through both entries
+on room and grid at hit_bias 0 and 0.005); K2's two versions are
 also held to the plain version (chip_smoke.py's K2 contract, 1 spp) on
 complex783 and the 3,908-sphere ``complex_scene(max_depth=5)``, and timed
 on the latter at 512x512 x 1 spp.
@@ -49,6 +51,7 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import re
 import statistics
 import subprocess
 import sys
@@ -97,11 +100,39 @@ def finish_build(procs):
             raise RuntimeError(f"nvcc failed for {out}:\n{logs[name]}")
         lib = libs[name] = ctypes.CDLL(str(out))
         for fn in ("pt_multi_pass_cuda", "pt_blocked_pass_cuda", "whitted_trace_cuda",
-                   "whitted_frame_cuda", "whitted5_trace_cuda", "texel_fetch_cuda"):
-            if hasattr(current[name], fn):
+                   "whitted_frame_cuda", "whitted_taps_cuda", "whitted5_trace_cuda",
+                   "texel_fetch_cuda"):
+            if hasattr(current[name], fn) and hasattr(lib, fn):
                 getattr(lib, fn).argtypes = getattr(current[name], fn).argtypes
                 getattr(lib, fn).restype = ctypes.c_int
     return libs, logs
+
+
+def sass_sections(path: Path):
+    """{function: its SASS text} of a built library (``cuobjdump -sass``).
+    The hashes nvcc puts in the anonymous namespace's name (of the source's
+    path) are cut from names and text, so that two builds of one source
+    from two directories compare."""
+    from se195_raytracer_tpu_torch.kernels import _build
+
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True, text=True,
+                          check=True).stdout
+    text = re.sub(r"(_GLOBAL__N__)[0-9a-f]{8}(_\d+_\w+?_cu_)[0-9a-f]{8}", r"\1\2", text)
+    parts = re.split(r"\n\s*Function : (\S+)\n", text)
+    return {parts[i]: parts[i + 1].strip() for i in range(1, len(parts) - 1, 2)}
+
+
+def compare_sass(new_path: Path, old_path: Path, source: str):
+    """Prints, for each kernel in both libraries, whether its SASS is the
+    same instruction for instruction: code that a change left alone."""
+    new, old = sass_sections(new_path), sass_sections(old_path)
+    for fn in sorted(new.keys() & old.keys()):
+        same = new[fn] == old[fn]
+        print(f"  SASS {source} {fn}: {'identical to old' if same else 'DIFFERS from old'} "
+              f"({new[fn].count(chr(10)) + 1} lines new, {old[fn].count(chr(10)) + 1} old)")
+    for fn in sorted(new.keys() - old.keys()):
+        print(f"  SASS {source} {fn}: new kernel")
 
 
 class FlatAtlasLib:
@@ -166,6 +197,7 @@ def equal(a, b):
 
 def ab_k3(lib):
     from se195_raytracer_tpu_torch.kernels import whitted_kernel as wk
+    from se195_raytracer_tpu_torch.models.whitted import whitted_camera_rays_device
     from se195_raytracer_tpu_torch.scenes.whitted_scenes import WHITTED_SCENES
 
     room = WHITTED_SCENES["room"]("cuda")
@@ -176,6 +208,20 @@ def ab_k3(lib):
             return frame()
 
     print(f"  K3 room frame: new bitwise equal to old: {equal([old_frame()], [frame()])}")
+    # Both entries on both scenes and hit_bias values, old against new.
+    w, h, ss, depth = (WHITTED[k] for k in ("width", "height", "supersample", "trace_depth"))
+    tiles = wk.rays_to_tiles(*whitted_camera_rays_device(w, h, ss, device="cuda"))
+    for name in ("room", "grid"):
+        scene = WHITTED_SCENES[name]("cuda")
+        for bias in (0.0, 0.005):
+            runs = {}
+            for tag in ("old", "new"):
+                with using(wk, lib) if tag == "old" else contextlib.nullcontext():
+                    runs[tag] = [wk.whitted_frame_cuda(scene, hit_bias=bias, **WHITTED),
+                                 wk.whitted_trace_cuda(scene, tiles, trace_depth=depth,
+                                                       hit_bias=bias)]
+            print(f"  K3 {name} hit_bias {bias}: frame and explicit-ray entries, new bitwise "
+                  f"equal to old: {equal(runs['old'], runs['new'])}")
     turns("K3 room 800x600 3x3 depth 5", old_frame, frame, timer=lambda fn: cs.launch_ms(fn, n=10))
 
 
@@ -362,6 +408,10 @@ def main() -> int:
     if all((args.old / f"{name}.cu").exists() for name in SOURCES):
         old, logs = finish_build(start_build(args.old))
         cs.print_ptxas(logs, "old ")
+        from se195_raytracer_tpu_torch.kernels._build import library_path
+
+        for name in SOURCES:
+            compare_sass(library_path(name), args.old / "_build" / f"{name}.so", name)
     else:
         print(f"  no old sources in {args.old}: the current sources only")
 

@@ -3,7 +3,9 @@
 //
 // Replaces the TPU kernel se195_raytracer_tpu/kernels/whitted_kernel.py
 // _make_whitted_kernel, driven there by whitted_trace_pallas_padded
-// (explicit rays) and whitted_frame_pallas (camera rays made in the kernel).
+// (explicit rays) and whitted_frame_pallas (camera rays made in the kernel),
+// and its debug taps (whitted_trace_pallas_padded(debug_tap=...)), which
+// whitted_taps_kernel carries here.
 // Computes, per primary ray, the bounded binary tree of depth trace_depth
 // (63 nodes at depth 5): the order-dependent nearest hit over planes and
 // spheres with the optional 3.2.03 hit_bias, hard shadows toward the
@@ -201,6 +203,75 @@ __device__ bool occluded(const Scene& s, float ox, float oy, float oz,
   return false;
 }
 
+// The local shading of a hit on primitive idx at (px, py, pz) by a ray of
+// direction (dx, dy, dz) (raytrace:179-242): the hit's normal, and its
+// color, added into col_*: a light's own color, else N.L diffuse and
+// Phong^20 over the lights with hard shadows toward each sphere light's
+// center.
+__device__ __forceinline__ void local_shade(const Scene& s, int idx, float px,
+                                            float py, float pz, float dx,
+                                            float dy, float dz, float& nx,
+                                            float& ny, float& nz,
+                                            float& col_r, float& col_g,
+                                            float& col_b) {
+  const float4 g = s.geom[idx];
+  const int kind = s.kind[idx];
+  const float4 hcol = s.col[idx];
+  if (kind & kPlane) {
+    nx = g.x;
+    ny = g.y;
+    nz = g.z;
+  } else {
+    const float rr = s.rrad[idx];
+    nx = (px - g.x) * rr;
+    ny = (py - g.y) * rr;
+    nz = (pz - g.z) * rr;
+  }
+  const float m_r = hcol.x, m_g = hcol.y, m_b = hcol.z;
+  if (kind & kLight) {
+    col_r = m_r;
+    col_g = m_g;
+    col_b = m_b;
+    return;
+  }
+  const float4 hmat = s.mat[idx];
+  const float m_diff = hmat.x, m_spec = hmat.y;
+  for (int k = 0; k < s.nl; ++k) {
+    const float4 lp = s.lpos[k];
+    const float4 lc = s.lcol[k];
+    const float lvx = lp.x - px;
+    const float lvy = lp.y - py;
+    const float lvz = lp.z - pz;
+    const float llen = sqrtf(fmaxf(lvx * lvx + lvy * lvy + lvz * lvz, 1e-30f));
+    const float ldx = lvx / llen, ldy = lvy / llen, ldz = lvz / llen;
+    float shade = 1.0f;
+    if (lp.w == 0.0f &&
+        occluded(s, px + ldx * kEps, py + ldy * kEps, pz + ldz * kEps, ldx,
+                 ldy, ldz, llen))
+      shade = 0.0f;
+    // Diffuse: dot(N, L) > 0 (raytracer_kernel.cl:215-223).
+    const float dnl = nx * ldx + ny * ldy + nz * ldz;
+    if (m_diff > 0.0f && dnl > 0.0f) {
+      const float dterm = dnl * m_diff * shade;
+      col_r = col_r + dterm * m_r * lc.x;
+      col_g = col_g + dterm * m_g * lc.y;
+      col_b = col_b + dterm * m_b * lc.z;
+    }
+    // Specular: R = L - 2 dot(L, N) N; powr(dot(V, R), 20) (:225-236).
+    const float k2 = 2.0f * dnl;
+    const float rvx = ldx - k2 * nx;
+    const float rvy = ldy - k2 * ny;
+    const float rvz = ldz - k2 * nz;
+    const float dvr = dx * rvx + dy * rvy + dz * rvz;
+    const float sterm = (m_spec > 0.0f && dvr > 0.0f)
+                            ? pow20(fmaxf(dvr, 0.0f)) * m_spec * shade
+                            : 0.0f;
+    col_r = col_r + sterm * lc.x;
+    col_g = col_g + sterm * lc.y;
+    col_b = col_b + sterm * lc.z;
+  }
+}
+
 // The ray being traced: a tree node with its scalar weight, Beer
 // transparency, the immediate parent's color (reflection rays only) and the
 // refractive index it travels in.
@@ -236,65 +307,9 @@ __device__ void trace_tree(const Scene& s, float ox, float oy, float oz,
     const float pz = ray.oz + ray.dz * dist;
     float col_r = 0.0f, col_g = 0.0f, col_b = 0.0f;
     float nx = 0.0f, ny = 0.0f, nz = 0.0f;
-    if (hit) {
-      const float4 g = s.geom[idx];
-      const int kind = s.kind[idx];
-      const float4 hcol = s.col[idx];
-      if (kind & kPlane) {
-        nx = g.x;
-        ny = g.y;
-        nz = g.z;
-      } else {
-        const float rr = s.rrad[idx];
-        nx = (px - g.x) * rr;
-        ny = (py - g.y) * rr;
-        nz = (pz - g.z) * rr;
-      }
-      const float m_r = hcol.x, m_g = hcol.y, m_b = hcol.z;
-      if (kind & kLight) {
-        col_r = m_r;
-        col_g = m_g;
-        col_b = m_b;
-      } else {
-        const float4 hmat = s.mat[idx];
-        const float m_diff = hmat.x, m_spec = hmat.y;
-        for (int k = 0; k < s.nl; ++k) {
-          const float4 lp = s.lpos[k];
-          const float4 lc = s.lcol[k];
-          const float lvx = lp.x - px;
-          const float lvy = lp.y - py;
-          const float lvz = lp.z - pz;
-          const float llen =
-              sqrtf(fmaxf(lvx * lvx + lvy * lvy + lvz * lvz, 1e-30f));
-          const float ldx = lvx / llen, ldy = lvy / llen, ldz = lvz / llen;
-          float shade = 1.0f;
-          if (lp.w == 0.0f &&
-              occluded(s, px + ldx * kEps, py + ldy * kEps, pz + ldz * kEps,
-                       ldx, ldy, ldz, llen))
-            shade = 0.0f;
-          // Diffuse: dot(N, L) > 0 (raytracer_kernel.cl:215-223).
-          const float dnl = nx * ldx + ny * ldy + nz * ldz;
-          if (m_diff > 0.0f && dnl > 0.0f) {
-            const float dterm = dnl * m_diff * shade;
-            col_r = col_r + dterm * m_r * lc.x;
-            col_g = col_g + dterm * m_g * lc.y;
-            col_b = col_b + dterm * m_b * lc.z;
-          }
-          // Specular: R = L - 2 dot(L, N) N; powr(dot(V, R), 20) (:225-236).
-          const float k2 = 2.0f * dnl;
-          const float rvx = ldx - k2 * nx;
-          const float rvy = ldy - k2 * ny;
-          const float rvz = ldz - k2 * nz;
-          const float dvr = ray.dx * rvx + ray.dy * rvy + ray.dz * rvz;
-          const float sterm = (m_spec > 0.0f && dvr > 0.0f)
-                                  ? pow20(fmaxf(dvr, 0.0f)) * m_spec * shade
-                                  : 0.0f;
-          col_r = col_r + sterm * lc.x;
-          col_g = col_g + sterm * lc.y;
-          col_b = col_b + sterm * lc.z;
-        }
-      }
-    }
+    if (hit)
+      local_shade(s, idx, px, py, pz, ray.dx, ray.dy, ray.dz, nx, ny, nz,
+                  col_r, col_g, col_b);
     // The node's contribution (raytracer_kernel.cl:317-328): color x weight
     // x (1 | parent color x transparency | transparency).
     float f_r = 1.0f, f_g = 1.0f, f_b = 1.0f;
@@ -526,6 +541,51 @@ whitted_frame_kernel(const float* __restrict__ table,
   }
 }
 
+// The debug taps (whitted_kernel.py:356-370, the reference's DEBUGGING
+// printf, raytracer_kernel.cl:1-6): instead of the tree, one triple per
+// explicit ray into out [3, rp]. kTapTres: the nearest fold's raw distance
+// (FLT_MAX on a miss), its result and a plane flag; kTapAttr: the winner's
+// red, diffuse factor and light flag (0 on a miss); kTapShade: the local
+// shade color of the primary hit (0 on a miss). A debug path, not tuned.
+enum Tap { kTapTres = 0, kTapAttr = 1, kTapShade = 2 };
+
+template <int kTap>
+__global__ void __launch_bounds__(kThreads)
+whitted_taps_kernel(const float* __restrict__ table,
+                    const int* __restrict__ light, int n, float bias,
+                    const float* __restrict__ rays, float* __restrict__ out,
+                    int rp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L(n, 0);
+  const Scene s = load_scene(table, light, n, bias, smem, L);
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= rp) return;
+  const float ox = rays[i], oy = rays[rp + i], oz = rays[2 * rp + i];
+  const float dx = rays[3 * rp + i], dy = rays[4 * rp + i],
+              dz = rays[5 * rp + i];
+  float cumu, res;
+  const int idx = nearest(s, ox, oy, oz, dx, dy, dz, cumu, res);
+  const bool hit = idx >= 0;
+  float a = 0.0f, b = 0.0f, c = 0.0f;
+  if (kTap == kTapTres) {
+    a = cumu;
+    b = res;
+    c = hit && (s.kind[idx] & kPlane) ? 1.0f : 0.0f;
+  } else if (hit && kTap == kTapAttr) {
+    a = s.col[idx].x;
+    b = s.mat[idx].x;
+    c = (s.kind[idx] & kLight) ? 1.0f : 0.0f;
+  } else if (hit) {
+    const float dist = fminf(cumu, kMaxDist);
+    float nx, ny, nz;
+    local_shade(s, idx, ox + dx * dist, oy + dy * dist, oz + dz * dist, dx,
+                dy, dz, nx, ny, nz, a, b, c);
+  }
+  out[i] = a;
+  out[rp + i] = b;
+  out[2 * rp + i] = c;
+}
+
 // A block's dynamic shared memory without the kernel's opt-in.
 constexpr size_t kSmemDefault = 48 * 1024;
 
@@ -579,5 +639,25 @@ extern "C" int whitted_frame_cuda(const float* table, const int* light, int n,
                          static_cast<cudaStream_t>(stream)>>>(
       table, light, n, bias, trace_depth, cam, width, height, ss, ppb, dxs,
       dys, hdx, hdy, scale, frame);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// tap: kTapTres, kTapAttr or kTapShade; rays [6, rp] -> out [3, rp]. Returns
+// cudaErrorInvalidValue for another tap.
+extern "C" int whitted_taps_cuda(const float* table, const int* light, int n,
+                                 float bias, int tap, const float* rays,
+                                 float* out, int rp, void* stream) {
+  void (*kernel)(const float*, const int*, int, float, const float*, float*,
+                 int) = tap == kTapTres    ? whitted_taps_kernel<kTapTres>
+                        : tap == kTapAttr  ? whitted_taps_kernel<kTapAttr>
+                        : tap == kTapShade ? whitted_taps_kernel<kTapShade>
+                                           : nullptr;
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = Layout(n, 0).total;
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = (rp + kThreads - 1) / kThreads;
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      table, light, n, bias, rays, out, rp);
   return static_cast<int>(cudaGetLastError());
 }

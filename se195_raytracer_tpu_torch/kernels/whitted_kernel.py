@@ -2,18 +2,20 @@
 (``csrc/whitted_kernel.cu``), twin of se195_raytracer_tpu/kernels/
 whitted_kernel.py.
 
-Two entries, as in the JAX package:
+Three entries, as in the JAX package:
 ``whitted_trace_cuda`` traces explicit ray tiles [6, Rp/128, 128] into
-acc [3, Rp/128, 128] (twin of ``whitted_trace_pallas_padded``), and
+acc [3, Rp/128, 128] (twin of ``whitted_trace_pallas_padded``),
 ``whitted_frame_cuda`` makes the camera rays in the kernel and returns the
 finished [H, W, 3] frame in 0..255 (twin of ``whitted_frame_pallas``),
 one thread per subsample ray, each block summing the subsamples of its
-``pixels_per_block`` pixels in the order of ``reduce_subsamples``.
+``pixels_per_block`` pixels in the order of ``reduce_subsamples``, and
+``whitted_taps_cuda`` emits a debug tap of the primary rays in place of
+the tree (twin of ``whitted_trace_pallas_padded(debug_tap=...)``).
 Tensors on the CPU take the plain version, ``models/whitted.py``
-(``whitted_trace`` and ``render_whitted_scene``), which is also what the
-tests and ``chip_smoke.py`` hold the kernel against. Each wrapper counts its
-launches in ``.launches`` and refuses inputs that require grad
-(``kernels/_guard.py``).
+(``whitted_trace``, ``render_whitted_scene`` and ``whitted_taps``), which
+is also what the tests and ``chip_smoke.py`` hold the kernel against. Each
+wrapper counts its launches in ``.launches`` and refuses inputs that
+require grad (``kernels/_guard.py``).
 
 Scene table (``pack_whitted_scene``): rows [0 type | 1-3 plane normal |
 4 plane depth | 5-7 center | 8 sq_radius | 9 r_radius | 10-12 color |
@@ -32,9 +34,11 @@ import torch
 from se195_raytracer_tpu_torch.core.types import resolve_device
 from se195_raytracer_tpu_torch.kernels._guard import refuse_grad
 from se195_raytracer_tpu_torch.models.whitted import (
+    TAPS,
     reduce_subsamples,
     render_whitted_scene,
     whitted_camera_row,
+    whitted_taps,
     whitted_trace,
     window_steps,
 )
@@ -121,6 +125,17 @@ def _scene_args(scene: WhittedScene, trace_depth: int, hit_bias: float, color_fl
     return (table.data_ptr(), light.data_ptr(), n, float(np.float32(hit_bias)), int(trace_depth))
 
 
+def _check_tiles(scene: WhittedScene, rays: torch.Tensor) -> None:
+    """Raise ValueError unless ``rays`` are float32 [6, rows, 128] tiles on
+    the scene's device, on the CPU or a CUDA device."""
+    if rays.dim() != 3 or rays.shape[0] != 6 or rays.shape[2] != LANES:
+        raise ValueError(f"rays: need [6, rows, {LANES}], got {tuple(rays.shape)}")
+    if rays.device != scene.device or rays.dtype != torch.float32:
+        raise ValueError(f"rays: need float32 on {scene.device}, got {rays.dtype} on {rays.device}")
+    if rays.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {rays.device}")
+
+
 def whitted_trace_cuda(
     scene: WhittedScene,
     rays: torch.Tensor,
@@ -132,17 +147,12 @@ def whitted_trace_cuda(
     the scene's device; returns acc [3, Rp/128, 128], each ray's summed tree
     color before the tone scale. CPU tensors take ``whitted_trace``."""
     refuse_grad("whitted_trace_cuda", scene, rays)
-    if rays.dim() != 3 or rays.shape[0] != 6 or rays.shape[2] != LANES:
-        raise ValueError(f"rays: need [6, rows, {LANES}], got {tuple(rays.shape)}")
-    if rays.device != scene.device or rays.dtype != torch.float32:
-        raise ValueError(f"rays: need float32 on {scene.device}, got {rays.dtype} on {rays.device}")
+    _check_tiles(scene, rays)
     rp = rays.shape[1] * LANES
     if rays.device.type == "cpu":
         flat = rays.reshape(6, rp)
         acc = whitted_trace(scene, flat[0:3].T, flat[3:6].T, trace_depth, hit_bias)
         return acc.T.reshape(3, rays.shape[1], LANES)
-    if rays.device.type != "cuda":
-        raise ValueError(f"unsupported device {rays.device}")
     rays = rays.contiguous()
     args = _scene_args(scene, trace_depth, hit_bias, 0)
     acc = torch.empty((3, rays.shape[1], LANES), dtype=torch.float32, device=rays.device)
@@ -156,6 +166,41 @@ def whitted_trace_cuda(
 
 
 whitted_trace_cuda.launches = 0
+
+
+def whitted_taps_cuda(
+    scene: WhittedScene,
+    rays: torch.Tensor,
+    *,
+    tap: str,
+    hit_bias: float = 0.0,
+) -> torch.Tensor:
+    """Debug tap ``tap`` ("tres", "attr" or "shade"; ``models/whitted.
+    whitted_taps`` says what each holds) of explicit rays [6, Rp/128, 128]
+    on the scene's device; returns [3, Rp/128, 128]. An unknown tap raises
+    ValueError. CPU tensors take ``whitted_taps``."""
+    refuse_grad("whitted_taps_cuda", scene, rays)
+    if tap not in TAPS:
+        raise ValueError(f"unknown debug tap {tap!r}; one of {TAPS}")
+    _check_tiles(scene, rays)
+    rp = rays.shape[1] * LANES
+    if rays.device.type == "cpu":
+        flat = rays.reshape(6, rp)
+        out = whitted_taps(scene, flat[0:3].T, flat[3:6].T, tap, hit_bias)
+        return out.T.reshape(3, rays.shape[1], LANES)
+    rays = rays.contiguous()
+    args = _scene_args(scene, 0, hit_bias, 0)[:4]
+    out = torch.empty((3, rays.shape[1], LANES), dtype=torch.float32, device=rays.device)
+    lib = _kernel_lib()
+    err = lib.whitted_taps_cuda(*args, TAPS.index(tap), rays.data_ptr(), out.data_ptr(), rp,
+                                torch.cuda.current_stream(rays.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"whitted_taps_cuda launch failed: cudaError {err}")
+    whitted_taps_cuda.launches += 1
+    return out
+
+
+whitted_taps_cuda.launches = 0
 
 
 def whitted_frame_cuda(
@@ -246,5 +291,7 @@ def _kernel_lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.whitted_trace_cuda.argtypes = [p, p, i, f, i, p, p, i, p]
         lib.whitted_frame_cuda.argtypes = [p, p, i, f, i, p, i, i, i, f, f, f, f, f, p, p]
-        lib.whitted_trace_cuda.restype = lib.whitted_frame_cuda.restype = ctypes.c_int
+        lib.whitted_taps_cuda.argtypes = [p, p, i, f, i, p, p, i, p]
+        for fn in (lib.whitted_trace_cuda, lib.whitted_frame_cuda, lib.whitted_taps_cuda):
+            fn.restype = ctypes.c_int
     return lib

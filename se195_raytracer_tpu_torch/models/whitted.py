@@ -189,18 +189,22 @@ def _get_normal(scene: WhittedScene, prim_idx: torch.Tensor, point: torch.Tensor
 
 
 def whitted_shade(scene: WhittedScene, o: torch.Tensor, d: torch.Tensor, hit_bias: float = 0.0,
-                  work: Optional[dict] = None, live: Optional[torch.Tensor] = None):
+                  work: Optional[dict] = None, live: Optional[torch.Tensor] = None,
+                  max_dist: Optional[float] = None):
     """raytrace (raytracer_kernel.cl:163-242): nearest hit + local shading.
 
     Returns (prim_idx, result, dist, point, color [R, 3]). A light returns
     its material color; another hit sums N.L diffuse and Phong^20 specular
     over the lights, with hard point shadows toward each sphere light's
     center. ``work`` and ``live`` are passed to ``whitted_occluded`` (the
-    lanes that hit a non-light)."""
+    lanes that hit a non-light). ``max_dist`` clamps the hit distance, as
+    the kernels clamp it at 1e6 (``whitted_taps``)."""
     prim_idx, result, dist = whitted_nearest(scene, o, d, hit_bias)
     hit = prim_idx >= 0
     safe_idx = torch.clamp(prim_idx, min=0)
     dist_safe = torch.where(hit, dist, 1.0)
+    if max_dist is not None:
+        dist_safe = torch.clamp(dist_safe, max=max_dist)
     point = o + d * dist_safe[:, None]
 
     is_light = torch.tensor(scene.is_light, device=o.device)
@@ -239,6 +243,44 @@ def whitted_shade(scene: WhittedScene, o: torch.Tensor, d: torch.Tensor, hit_bia
 
     color = torch.where(hit_is_light[:, None], m_color, torch.where(hit[:, None], acc, 0.0))
     return prim_idx, result, dist_safe, point, color
+
+
+# The kernels' debug taps (whitted_kernel.py:356-370 of the JAX package):
+# instead of the tree, three planes per primary ray.
+TAPS = ("tres", "attr", "shade")
+# The kernels clamp a hit's distance before shading it (whitted_kernel.py:302).
+_MAX_DIST = 1e6
+
+
+def whitted_taps(scene: WhittedScene, o: torch.Tensor, d: torch.Tensor, tap: str,
+                 hit_bias: float = 0.0) -> torch.Tensor:
+    """What the Whitted kernels' debug tap ``tap`` emits for the rays
+    (o, d) [R, 3], as [R, 3] float32 (the reference's DEBUGGING printf,
+    raytracer_kernel.cl:1-6, as a tensor):
+
+    - ``"tres"``: the nearest fold's raw distance (float32 max on a miss,
+      not clamped), its result (MISS 0, HIT 1, INPRIM -1) and 1 where the
+      winner is a plane;
+    - ``"attr"``: the winner's red, diffuse factor and light flag, 0 on a miss;
+    - ``"shade"``: ``whitted_shade``'s color with the hit distance clamped at
+      1e6, as the kernels shade it: a light's own color, 0 on a miss.
+
+    An unknown tap raises ValueError."""
+    if tap not in TAPS:
+        raise ValueError(f"unknown debug tap {tap!r}; one of {TAPS}")
+    if tap == "shade":
+        return whitted_shade(scene, o, d, hit_bias, max_dist=_MAX_DIST)[4]
+    prim_idx, result, dist = whitted_nearest(scene, o, d, hit_bias)
+    hit = prim_idx >= 0
+    safe_idx = torch.clamp(prim_idx, min=0)
+    if tap == "tres":
+        is_plane = torch.tensor([t == PLANE for t in scene.ptype], device=o.device)[safe_idx]
+        return torch.stack([dist, result.to(torch.float32), (hit & is_plane).to(torch.float32)],
+                           dim=-1)
+    is_light = torch.tensor(scene.is_light, device=o.device)[safe_idx]
+    return torch.stack([torch.where(hit, scene.color[safe_idx, 0], 0.0),
+                        torch.where(hit, scene.diff[safe_idx], 0.0),
+                        (hit & is_light).to(torch.float32)], dim=-1)
 
 
 def whitted_trace(
