@@ -10,14 +10,26 @@
    DL/mwc and PT/counter, and progressive resume (1+1 vs 2 spp);
 3. the Cornell main path: ``cli.main(["render", ...])`` and
    ``driver.render.render`` at 512x512, 8 spp, with every launch counter set
-   to 0 just before and read just after; the image against the plain mean;
-4. K1 timing: kernel (PT, and DL), end to end with readback, plain,
-   breakdown, bound;
+   to 0 just before and read just after (one seeding in the seed kernel and
+   one K1 launch per render); the image against the plain mean;
+4. K1 timing: kernel (PT, and DL), end to end with readback (and in turns
+   against numpy's seed route), plain, bound, and the breakdown of
+   ``render_cuda`` step by step (lane tables, ``scene.to``, seed init,
+   pack, light list, kernel, gather, readback; beside them the steps this
+   slice replaced: numpy's seeds, the per-launch light-list and pix/inv
+   copies);
+4s. the seed kernel (csrc/seed_kernel.cu) bitwise against numpy's draw at
+   512x512 on seeds 0, 125, 2425 and 2508 (the last three reject a word),
+   mwc and counter, K1 and K2 layouts, whole and in 8 shards; its plain
+   version on the card bitwise; an overflowing rejection list raises; its
+   device time, ``init_pt_state`` on both routes, the plain version's time
+   and the bytes bound;
 5. K2 (csrc/pt_kernel.cu, the blocked, culled sweep) against the plain
    version on ``complex`` (783 spheres) at 512x512, 1 spp, PT/mwc and
    PT/counter; cull on against cull off, bitwise, at 512x512, 1 spp;
 6. the complex783 main path (CLI and ``render``, 512x512, 8 spp: one K2
-   launch per render, no K1 launch) and K2 timing, its bound counted from
+   launch and one seeding per render, no K1 launch) and K2 timing, the
+   breakdown and the in-turns end to end as in 4, its bound counted from
    the per-ray culled work of the plain version, K2's own per-ray tests
    beside it, and the K2 split (max_depth 1 and 7, PT and DL, cull on and
    off, each with its work count);
@@ -54,7 +66,8 @@
 S. the sharded paths (parallel/), 8 shards on cuda:0, each image held
    bitwise to the single-device render and timed end to end beside it (the
    cost of 8 launches on one card; no scaling claim): Cornell 512x512 x 8
-   spp through K1 (8 K1 launches, no plain ``radiance``), complex783
+   spp through K1 (8 K1 launches and 8 seedings, each shard its own
+   lanes, no plain ``radiance``), complex783
    512x512 x 8 spp and 640x480 x 1 spp (2 pad tiles) through K2, Whitted
    room 800x600 3x3 through K3's explicit-ray entry against its frame
    entry, room5 800x600 spp 8 through K4; two processes on the card (gloo,
@@ -98,7 +111,7 @@ T. last, K3's debug taps (``whitted_taps_cuda``: tres, attr and shade on
 13. prints the grad phase's numbers (``{"grad": {...}}``), the sharded
     phase's (``{"sharded": {...}}``), phase T's (``{"taps"}``,
     ``{"mt19937"}``, ``{"texrec"}``), one JSON line per kernel
-    (``{"kernels": [...]}``, K1-K5, K1 and K2 with their launches per
+    (``{"kernels": [...]}``, K1-K5 and the seed kernel, K1 and K2 with their launches per
     differentiable forward, each with its launches in the sharded render
     that runs it, as counted there; K5's are the room5 K4 launches it ran
     inside)
@@ -106,7 +119,7 @@ T. last, K3's debug taps (``whitted_taps_cuda``: tres, attr and shade on
 
 ``--only-grad`` builds the kernels and runs K1's first check and the grad
 phase only; ``--only-sharded`` the sharded phase only; ``--only-t`` phase
-T only.
+T only; ``--only-seed`` phases 2-4 and 4s only.
 
 Any failed check exits non-zero before the last line. Imports nothing of
 JAX or of the JAX package. Exits non-zero without a result when no CUDA
@@ -115,6 +128,7 @@ device is present.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -213,6 +227,10 @@ PIXEL_BOUND_PCT = {("light emission r", False): 0.1, ("light emission r", True):
                    ("wall albedo g", False): 0.1, ("wall albedo g", True): 0.1,
                    ("light center y", False): None, ("light center y", True): 2.0}
 
+
+# The seed kernel's phase: seeds checked bitwise against numpy, the three
+# of them below 2600 whose first 2 * 512^2 draws reject a word included.
+SEED_SEEDS = (0, 125, 2425, 2508)
 
 # Diagnostic splits (one line per kernel): K3's frame at (trace_depth,
 # supersample), room 800x600; K2 at (max_depth, integrator), complex783
@@ -342,21 +360,24 @@ def check_resume(scene_name, width, height, device):
 
 def zero_counters():
     from se195_raytracer_tpu_torch.kernels import pt_kernel as ptk
+    from se195_raytracer_tpu_torch.kernels import seed_kernel as sk
     from se195_raytracer_tpu_torch.kernels import texel_kernel as tk
     from se195_raytracer_tpu_torch.kernels import whitted5_kernel as w5k
     from se195_raytracer_tpu_torch.kernels import whitted_kernel as wk
 
     for fn in (ptk.pt_multi_pass, ptk.pt_blocked_pass, wk.whitted_trace_cuda,
                wk.whitted_frame_cuda, wk.whitted_taps_cuda, w5k.whitted5_trace_cuda,
-               tk.texel_fetch_cuda):
+               tk.texel_fetch_cuda, sk.seed_lanes):
         fn.launches = 0
     w5k.whitted5_trace_cuda.texel_launches = 0
 
 
 def read_counters():
     """Launches by kernel. K5 counts the K4 launches whose scene is textured,
-    where its fetch runs inside K4, plus launches of its own entry."""
+    where its fetch runs inside K4, plus launches of its own entry; Seed
+    counts the seed kernel's seedings (``seed_lanes``)."""
     from se195_raytracer_tpu_torch.kernels import pt_kernel as ptk
+    from se195_raytracer_tpu_torch.kernels import seed_kernel as sk
     from se195_raytracer_tpu_torch.kernels import texel_kernel as tk
     from se195_raytracer_tpu_torch.kernels import whitted5_kernel as w5k
     from se195_raytracer_tpu_torch.kernels import whitted_kernel as wk
@@ -365,13 +386,18 @@ def read_counters():
             "K3": (wk.whitted_trace_cuda.launches + wk.whitted_frame_cuda.launches
                    + wk.whitted_taps_cuda.launches),
             "K4": w5k.whitted5_trace_cuda.launches,
-            "K5": w5k.whitted5_trace_cuda.texel_launches + tk.texel_fetch_cuda.launches}
+            "K5": w5k.whitted5_trace_cuda.texel_launches + tk.texel_fetch_cuda.launches,
+            "Seed": sk.seed_lanes.launches}
+
+
+# Launches by kernel in each scene's main path (run_main_path).
+MAIN_LAUNCHES = {}
 
 
 def run_main_path(scene_name, width, height, spp, out_png, want):
     """The user's entry points: the CLI, then driver.render.render. ``want``
-    names the kernel that must run once per call. Returns (image, config,
-    launches by kernel)."""
+    names the kernel that must run once per call, after one seeding in the
+    seed kernel. Returns (image, config, launches by kernel)."""
     import torch
 
     from se195_raytracer_tpu_torch import cli
@@ -393,9 +419,12 @@ def run_main_path(scene_name, width, height, spp, out_png, want):
     check(tuple(img.shape) == (height, width, 3), f"image shape {tuple(img.shape)}")
     check(bool(torch.isfinite(img).all()), "main-path image not finite")
     check(img.mean().item() > 0.0, "main-path image is black")
-    others = {k: v for k, v in launches.items() if k != want}
-    check(after_cli[want] == 1 and launches[want] == 2 and not any(others.values()),
-          f"launches: cli {after_cli}, total {launches} (want one {want} per call, nothing else)")
+    others = {k: v for k, v in launches.items() if k not in (want, "Seed")}
+    check(after_cli[want] == after_cli["Seed"] == 1 and launches[want] == launches["Seed"] == 2
+          and not any(others.values()),
+          f"launches: cli {after_cli}, total {launches} (want one {want} and one Seed per call, "
+          "nothing else)")
+    MAIN_LAUNCHES[scene_name] = launches
     return img, cfg, launches
 
 
@@ -612,6 +641,112 @@ def bound(ops, nbytes, kernel_ms, label):
     return bound_ms, bound_by
 
 
+@contextlib.contextmanager
+def numpy_seed_route():
+    """Inside: ``render_cuda`` seeds through ``init_pt_state_host`` (numpy's
+    draw on the host, laid out there and copied to the card), the route
+    the port took before the seed kernel."""
+    from se195_raytracer_tpu_torch.kernels import pt_kernel as ptk
+
+    kernel_route = ptk.init_pt_state
+    ptk.init_pt_state = ptk.init_pt_state_host
+    try:
+        yield
+    finally:
+        ptk.init_pt_state = kernel_route
+
+
+def same_as_numpy_seeds(img, scene_name, cfg):
+    """The main path's image (seeded in the seed kernel) against ``render``
+    seeded by numpy's route: bitwise (the kernels are deterministic)."""
+    import torch
+
+    from se195_raytracer_tpu_torch.driver.render import render
+
+    spec = get_spec(scene_name)
+    with numpy_seed_route():
+        ref, _ = render(spec.to_scene(), spec.to_camera(), cfg)
+    same = bool(torch.equal(img, ref))
+    print(f"  image bitwise the one numpy's seeds give: {same}")
+    check(same, f"{scene_name}: the image seeded in the seed kernel differs from numpy-seeded")
+
+
+def paired_e2e(fn, label, reps=5):
+    """``fn`` (a render read back to the host) with the seed kernel and
+    with numpy's seed route, in turns (kernel, numpy, numpy, kernel), each
+    ``host_ms`` over ``reps``: the medians of each route's runs."""
+    runs = {"kernel": [], "numpy": []}
+    for route in ("kernel", "numpy", "numpy", "kernel"):
+        with numpy_seed_route() if route == "numpy" else contextlib.nullcontext():
+            runs[route] += host_ms(fn, reps)[1]
+    out = {f"{k}_seed_ms": statistics.median(v) for k, v in runs.items()}
+    out["times"] = runs
+    print(f"  {label} end to end in turns: seed kernel {out['kernel_seed_ms']:.4f} ms, numpy's "
+          f"seed route {out['numpy_seed_ms']:.4f} ms "
+          f"({out['numpy_seed_ms'] / out['kernel_seed_ms']:.4f}x)")
+    return out
+
+
+def render_breakdown(scene, camera, cfg, kernel_ms, e2e_ms, label):
+    """``render_cuda``'s steps at ``cfg``, each alone on the host clock
+    (synchronised before and after; median of REPS), the kernel by CUDA
+    events (``kernel_ms``); ``unattributed`` is what ``e2e_ms`` leaves over
+    (the steps' Python glue, and the syncs they overlap with in a render).
+    Beside them (``replaced``), what the steps this change replaced cost:
+    numpy's seed route, the light-list copy K1 made every launch and (K2)
+    the pix/inv copies every render made. K2's bounds (``_k2_tables``, on a
+    fresh table as every render packs one) include a clone of the table."""
+    import torch
+
+    from se195_raytracer_tpu_torch.kernels import pt_kernel as ptk
+
+    dev = torch.device("cuda")
+    w, h = cfg.width, cfg.height
+    r = w * h
+    blocked = scene.num_spheres > ptk.UNROLL_MAX_SPHERES
+    lights = tuple(scene.light_indices)
+    _, pix_np, inv_np = ptk.ray_layout(w, h, blocked)
+    s0, s1, acc = ptk.init_pt_state(cfg, dev, blocked)
+    tab = ptk.pack_scene(scene)
+    inv = ptk.lane_tables(w, h, blocked, 1, dev)[1]
+    flat = acc.reshape(3, -1)
+
+    def gather():
+        return (flat[:, inv] if blocked else flat[:, :r]).T.reshape(h, w, 3)
+
+    img = gather()
+    steps = {
+        "ray_layout": lambda: ptk.ray_layout(w, h, blocked),
+        "lane_tables": lambda: ptk.lane_tables(w, h, blocked, 1, dev),
+        "scene_to": lambda: (scene.to(dev), camera.to(dev)),
+        "seed": lambda: ptk.init_pt_state(cfg, dev, blocked),
+        "pack_scene": lambda: ptk.pack_scene(scene),
+        "pack_camera": lambda: ptk.pack_camera(ptk.update_camera(camera, w, h)),
+    }
+    if blocked:
+        steps["k2_tables"] = lambda: ptk._k2_tables(tab.clone(), lights)
+    else:
+        steps["lights_and_outputs"] = lambda: ptk._lights_and_outputs(lights, s0, s1, acc)
+    steps["gather"] = gather
+    steps["readback"] = lambda: img.cpu()
+    parts = {k: host_ms(fn)[0] for k, fn in steps.items()}
+    parts["kernel"] = kernel_ms
+    parts["unattributed"] = e2e_ms - sum(parts.values())
+    replaced = {
+        "seed_numpy_route": host_ms(lambda: ptk.init_pt_state_host(cfg, dev, blocked))[0],
+        "light_list_copy": host_ms(
+            lambda: torch.tensor(lights, dtype=torch.int32, device=dev))[0],
+    }
+    if blocked:
+        replaced["pix_inv_copies"] = host_ms(lambda: (torch.from_numpy(pix_np).to(dev),
+                                                      torch.from_numpy(inv_np).to(dev)))[0]
+    print(f"  {label} breakdown of {e2e_ms:.4f} ms (host clock, medians, each step alone): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
+    print(f"  {label} steps this change replaced: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in replaced.items()))
+    return parts, replaced
+
+
 def k1_section():
     """Phases 2-4: K1 parity, the Cornell main path, K1 timing."""
     import torch
@@ -632,6 +767,7 @@ def k1_section():
             SCENE, WIDTH, HEIGHT, SPP, os.path.join(tmp, "cornell.png"), "K1")
     torch.cuda.synchronize()
     print(f"  launches during the main path: {launches}")
+    same_as_numpy_seeds(img, SCENE, cfg)
     scene_tab, cam_tab, (s0, s1, acc), _, kw = pass_inputs(
         SCENE, WIDTH, HEIGHT, "pt", "mwc", "cuda")
     live = []
@@ -665,11 +801,10 @@ def k1_section():
     torch.cuda.reset_peak_memory_stats()
     e2e_ms, e2e = host_ms(lambda: render(scene, camera, cfg)[0].cpu())
     peak_mem = torch.cuda.max_memory_allocated()
+    e2e_pair = paired_e2e(lambda: render(scene, camera, cfg)[0].cpu(), "Cornell")
     # Where the end-to-end time goes: render_cuda's steps, one at a time.
-    seed_ms, _ = host_ms(lambda: ptk.init_pt_state(cfg, "cuda"))
-    pack_ms, _ = host_ms(lambda: (ptk.pack_scene(scene.to("cuda")), ptk.pack_camera(
-        ptk.update_camera(camera.to("cuda"), WIDTH, HEIGHT))))
-    readback_ms, _ = host_ms(lambda: img.cpu())
+    parts, replaced = render_breakdown(scene.to("cuda"), camera.to("cuda"), cfg, kernel_ms,
+                                       e2e_ms, "Cornell")
     rays = WIDTH * HEIGHT * SPP
     ops = OPS_CAMERA * rays + live_bounces * ops_per_bounce(
         scene.num_spheres, len(scene.light_indices))
@@ -679,9 +814,6 @@ def k1_section():
           f"(reps {['%.4f' % t for t in dl_all]})")
     print(f"  end to end incl. readback: {e2e_ms:.4f} ms (reps {['%.3f' % t for t in e2e]}), "
           f"{rays / e2e_ms * 1e3:.4g} rays/s")
-    print(f"  breakdown (host clock, medians): seed init {seed_ms:.4f} ms, scene/camera pack "
-          f"{pack_ms:.4f} ms, K1 {kernel_ms:.4f} ms, [H, W, 3] readback {readback_ms:.4f} ms; "
-          f"rest of e2e {e2e_ms - seed_ms - pack_ms - kernel_ms - readback_ms:.4f} ms")
     print(f"  plain version: {plain_ms:.3f} ms (reps {['%.3f' % t for t in plain_all]})")
     print(f"  peak memory allocated: {peak_mem} B")
     bound_ms, bound_by = bound(ops, STATE_BYTES_PER_LANE * s0.shape[0], kernel_ms, "K1")
@@ -705,8 +837,128 @@ def k1_section():
         "e2e_rays_per_s": rays / e2e_ms * 1e3,
         "kernel_rays_per_s": rays / kernel_ms * 1e3,
         "peak_mem_bytes": peak_mem,
-        "breakdown_ms": {"seed": seed_ms, "pack": pack_ms, "kernel": kernel_ms,
-                         "readback": readback_ms},
+        "breakdown_ms": parts,
+        "replaced_steps_ms": replaced,
+        "e2e_in_turns": e2e_pair,
+    }
+
+
+def seed_section():
+    """Phase [4s]: the seed kernel (csrc/seed_kernel.cu) bitwise against
+    numpy's draw (``init_pt_state_host``) at WIDTH x HEIGHT on SEED_SEEDS,
+    mwc and counter, in K1's and K2's layouts and split in SHARDS shards of
+    the ``tile_multiple=SHARDS`` layouts; the plain version on the card
+    bitwise too; the list's overflow raising on the card; then its device
+    time (``queued_ms``: no profiler session, which would leave K5's later
+    sessions without events), the host time of ``init_pt_state`` on both
+    routes, the plain version's time and the bytes bound. The launches are
+    those of the Cornell main path (phase 3)."""
+    import torch
+
+    from se195_raytracer_tpu_torch.core.config import RenderConfig
+    from se195_raytracer_tpu_torch.kernels import pt_kernel as ptk
+    from se195_raytracer_tpu_torch.kernels import seed_kernel as sk
+
+    n = WIDTH * HEIGHT
+    print(f"[4s] seed kernel against numpy's draw: {WIDTH}x{HEIGHT}, seeds {SEED_SEEDS}, mwc "
+          f"and counter, K1 and K2 layouts, whole and in {SHARDS} shards")
+    worst, words = 0, 0
+    for seed in SEED_SEEDS:
+        for rng in ("mwc", "counter"):
+            cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=1, seed=seed, rng=rng)
+            for blocked in (False, True):
+                for tm in (1, SHARDS):
+                    want = ptk.init_pt_state_host(cfg, "cpu", blocked, tm)[:2]
+                    if tm == 1:
+                        got = ptk.init_pt_state(cfg, "cuda", blocked)[:2]
+                    else:
+                        rp, pix_np, _ = ptk.ray_layout(WIDTH, HEIGHT, blocked, tm)
+                        per = rp // tm
+                        parts = [sk.seed_lanes(rng, seed, n, device="cuda", **(
+                            dict(pix=torch.from_numpy(pix_np[k * per:(k + 1) * per]).cuda())
+                            if blocked else dict(lanes=per, lane_offset=k * per)))
+                            for k in range(tm)]
+                        got = [torch.cat([p[i] for p in parts]) for i in (0, 1)]
+                    for g, w in zip(got, want):
+                        g = g.cpu()
+                        diff = (g.to(torch.int64) - w.to(torch.int64)).abs().max().item()
+                        worst = max(worst, diff)
+                        words += g.numel()
+                        check(torch.equal(g, w), f"seed {seed} {rng} {'K2' if blocked else 'K1'} "
+                              f"layout, tile_multiple {tm}: the kernel differs from numpy")
+    rp = ptk.ray_layout(WIDTH, HEIGHT)[0]
+    for seed in (0, 125):
+        plain = sk.seed_lanes_reference("mwc", seed, n, rp, device="cuda")
+        kern = sk.seed_lanes("mwc", seed, n, rp, device="cuda")
+        check(all(bool(torch.equal(a, b)) for a, b in zip(plain, kern)),
+              f"seed {seed}: the plain version on the card differs from the kernel")
+    try:
+        sk.seed_lanes("mwc", 125, n, 8, device="cuda", capacity=0)
+        raised = False
+    except RuntimeError as e:
+        raised = "more than the list holds" in str(e)
+    check(raised, "seed 125 with a rejection list of 0 did not raise")
+    sk.seed_lanes("mwc", 125, n, 8, device="cuda", capacity=1)
+    print(f"  {words} words bitwise numpy's (max |diff| {worst}); the plain version on the card "
+          "bitwise the kernel (seeds 0, 125); an overflowing list raises")
+
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=1, seed=SEED)
+    dev = torch.device("cuda")
+    # The launches alone (the count not read), queued behind a sleep: the
+    # memset, scan and draw of a seeding; the memset and scan alone (no
+    # lanes); the counter keys.
+    kernel_ms, kernel_all = queued_ms(
+        lambda: sk._launch("mwc", SEED, n, rp, None, 0, dev, sk.CAPACITY))
+    scan_ms, _ = queued_ms(lambda: sk._launch("mwc", SEED, n, 0, None, 0, dev, sk.CAPACITY))
+    draw_ms = kernel_ms - scan_ms
+    counter_ms, _ = queued_ms(
+        lambda: sk._launch("counter", SEED, n, rp, None, 0, dev, sk.CAPACITY))
+    event_ms, event_all = median_ms(lambda: sk.seed_lanes("mwc", SEED, n, rp, device="cuda"))
+    host = {}
+    for blocked in (False, True):
+        key = "K2" if blocked else "K1"
+        host[key] = {"kernel_route_ms": host_ms(lambda: ptk.init_pt_state(cfg, "cuda", blocked))[0],
+                     "numpy_route_ms": host_ms(
+                         lambda: ptk.init_pt_state_host(cfg, "cuda", blocked))[0]}
+    plain_ms, plain_all = median_ms(lambda: sk.seed_lanes_reference(
+        "mwc", SEED, n, rp, device="cuda"), reps=3)
+    nbytes = 8 * rp
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    print(f"  mwc at {rp} lanes: device time {kernel_ms:.5f} ms a seeding (reps "
+          f"{['%.5f' % t for t in kernel_all]}; memset and scan {scan_ms:.5f}, draw "
+          f"{draw_ms:.5f}); CUDA events around one call of the wrapper, its one-word read "
+          f"included, {event_ms:.5f} ms (reps {['%.5f' % t for t in event_all]}); counter keys "
+          f"{counter_ms:.5f} ms")
+    for key, v in host.items():
+        print(f"  init_pt_state, {key} layout (host clock): seed kernel {v['kernel_route_ms']:.4f} "
+              f"ms, numpy's route {v['numpy_route_ms']:.4f} ms "
+              f"({v['numpy_route_ms'] / v['kernel_route_ms']:.2f}x)")
+    print(f"  plain version on the card: {plain_ms:.3f} ms "
+          f"(reps {['%.3f' % t for t in plain_all]})")
+    print(f"  bound: {nbytes} B written -> {bound_ms:.5f} ms at 3.35 TB/s (by bytes), share "
+          f"{bound_ms / kernel_ms:.2%}")
+    return {
+        "name": "Seed seed_lanes",
+        "route": "cuda",
+        "designed_in": designed_in("Seed"),
+        "source": "se195_raytracer_tpu_torch/kernels/csrc/seed_kernel.cu",
+        "replaces": "se195_raytracer_tpu/core/rng.py:63",
+        "replaces_note": ("no pl.pallas_call: the JAX package draws the seeds with numpy on the "
+                          "host (core/rng.py:63-72 and :94-107, laid out at "
+                          "kernels/pt_kernel.py:897-906)"),
+        "launches": MAIN_LAUNCHES[SCENE]["Seed"],
+        "max_abs_err": worst,
+        "words_compared": words,
+        "ms": kernel_ms,
+        "scan_ms": scan_ms,
+        "draw_ms": draw_ms,
+        "event_ms": event_ms,
+        "counter_ms": counter_ms,
+        "init_pt_state_host_ms": host,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
     }
 
 
@@ -902,9 +1154,10 @@ def grad_section(card):
             torch.cuda.synchronize()
             launches, plain_calls = read_counters(), calls["n"]
             print(f"  spp {spp} forward: launches {launches}, plain radiance calls {plain_calls}")
-            check(launches["K1"] == 1 and not any(v for k, v in launches.items() if k != "K1")
-                  and plain_calls == 0, f"spp {spp}: the forward must be one K1 launch and no "
-                  f"plain radiance, got {launches}, {plain_calls}")
+            check(launches["K1"] == launches["Seed"] == 1
+                  and not any(v for k, v in launches.items() if k not in ("K1", "Seed"))
+                  and plain_calls == 0, f"spp {spp}: the forward must be one seeding, one K1 "
+                  f"launch and no plain radiance, got {launches}, {plain_calls}")
             with torch.no_grad():
                 primal = _render_plain_diff(scene, camera, cfg)
             err, mismatch = contract(img, primal, f"spp {spp} forward against the plain primal")
@@ -916,9 +1169,12 @@ def grad_section(card):
             ga = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
             torch.cuda.synchronize()
             bwd_launches, bwd_calls = read_counters(), calls["n"]
-            check(not any(bwd_launches.values()) and bwd_calls == spp,
-                  f"spp {spp}: the backward must launch no kernel and run the plain path "
-                  f"{spp} times, got {bwd_launches}, {bwd_calls}")
+            check(bwd_launches["Seed"] == 1
+                  and not any(v for k, v in bwd_launches.items() if k != "Seed")
+                  and bwd_calls == spp,
+                  f"spp {spp}: the backward must seed its recompute once in the seed kernel, "
+                  f"launch no other kernel and run the plain path {spp} times, got "
+                  f"{bwd_launches}, {bwd_calls}")
             leaves_b, scene_b, camera_b = grad_leaves(scene0, cam0)
             plain = _render_plain_diff(scene_b, camera_b, cfg)
             gb = dict(zip(leaves_b, torch.autograd.grad(plain, list(leaves_b.values()),
@@ -968,7 +1224,8 @@ def grad_section(card):
         img = render_differentiable(scene, camera, cfg2)
         torch.cuda.synchronize()
         launches, plain_calls = read_counters(), calls["n"]
-        check(launches["K2"] == 1 and not any(v for k, v in launches.items() if k != "K2")
+        check(launches["K2"] == launches["Seed"] == 1
+              and not any(v for k, v in launches.items() if k not in ("K2", "Seed"))
               and plain_calls == 0, f"complex forward: {launches}, plain {plain_calls}")
         t = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
@@ -1126,6 +1383,7 @@ def k2_section():
             COMPLEX, WIDTH, HEIGHT, SPP, os.path.join(tmp, "complex.png"), "K2")
     torch.cuda.synchronize()
     print(f"  launches during the main path: {launches}")
+    same_as_numpy_seeds(img, COMPLEX, cfg)
     hook, work = ptk.culled_work_counter(scene_tab)
     t = time.perf_counter()
     _, _, pacc = ptk.pt_pass_reference(scene_tab, cam_tab, 0, s0, s1, acc, pix,
@@ -1150,6 +1408,9 @@ def k2_section():
     torch.cuda.reset_peak_memory_stats()
     e2e_ms, e2e = host_ms(lambda: render(scene, camera, cfg)[0].cpu(), reps=5)
     peak_mem = torch.cuda.max_memory_allocated()
+    e2e_pair = paired_e2e(lambda: render(scene, camera, cfg)[0].cpu(), "complex783")
+    parts, replaced = render_breakdown(scene.to("cuda"), camera.to("cuda"), cfg, kernel_ms,
+                                       e2e_ms, "complex783")
     rays = WIDTH * HEIGHT * SPP
     ops = (OPS_CAMERA * rays + OPS_SHADE * work["nearest_rays"]
            + OPS_SHADOW_SETUP * work["shadow_rays"]
@@ -1194,6 +1455,9 @@ def k2_section():
         "e2e_rays_per_s": rays / e2e_ms * 1e3,
         "kernel_rays_per_s": rays / kernel_ms * 1e3,
         "peak_mem_bytes": peak_mem,
+        "breakdown_ms": parts,
+        "replaced_steps_ms": replaced,
+        "e2e_in_turns": e2e_pair,
         "work": work,
         "split": split,
     }
@@ -1760,6 +2024,37 @@ def launch_ms(fn, n=20, reps=5):
     return statistics.median(times), times
 
 
+def queued_ms(fn, n=50, reps=5):
+    """Device time per call of ``fn`` (launches only, no host sync): ``n``
+    calls enqueued behind a ``torch.cuda._sleep`` that outlasts their
+    enqueue, between two CUDA events, so they run back to back on the card
+    and the events time the device, not the host's launch rate. Median
+    over ``reps``, after a warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    enqueue_s = time.perf_counter() - t
+    # Clock cycles of the sleep: twice the measured enqueue time at 2 GHz.
+    cycles = int(2 * enqueue_s * 2e9) + 1_000_000
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times), times
+
+
 def device_ms(fn, name=None, n=20):
     """Device time per call of ``fn`` over ``n`` calls under torch.profiler
     (one warm-up call first): the summed device time of the kernels whose
@@ -1974,6 +2269,7 @@ import numpy as np
 import torch
 from se195_raytracer_tpu_torch.core.config import RenderConfig
 from se195_raytracer_tpu_torch.kernels import pt_kernel as ptk
+from se195_raytracer_tpu_torch.kernels import seed_kernel as sk
 from se195_raytracer_tpu_torch.parallel import render_sharded as rs
 from se195_raytracer_tpu_torch.parallel.mesh import make_mesh
 from se195_raytracer_tpu_torch.scenes.registry import get_scene
@@ -1987,7 +2283,7 @@ scene, cam = spec.to_scene("cuda"), spec.to_camera("cuda")
 cfg = RenderConfig(width=512, height=512, spp=8, seed=0)
 rs.render_cuda_sharded(scene, cam, cfg, mesh)  # warm-up: load the kernels
 times = []
-ptk.pt_multi_pass.launches = 0
+ptk.pt_multi_pass.launches = sk.seed_lanes.launches = 0
 for _ in range(5):
     dist.barrier()
     torch.cuda.synchronize()
@@ -1998,7 +2294,8 @@ for _ in range(5):
 if rank == 0:
     np.save(out, img.numpy())
 print(json.dumps({"rank": rank, "ms": sorted(times)[2], "times": times,
-                  "k1_launches_per_render": ptk.pt_multi_pass.launches / 5}))
+                  "k1_launches_per_render": ptk.pt_multi_pass.launches / 5,
+                  "seed_launches_per_render": sk.seed_lanes.launches / 5}))
 dist.destroy_process_group()
 """
 
@@ -2036,11 +2333,15 @@ def _sharded_cell(label, single_fn, sharded_fn, want):
     same = bool(torch.equal(sharded, single))
     diff = (sharded - single).abs().max().item()
     check(bool(torch.isfinite(sharded).all()), f"{label}: sharded image not finite")
-    # K5 runs inside each K4 launch on a textured scene.
-    others = {k: v for k, v in launches.items() if k not in (want, "K5" if want == "K4" else want)}
-    check(launches[want] == SHARDS and not any(others.values()) and calls["n"] == 0,
+    # K5 runs inside each K4 launch on a textured scene; each K1/K2 shard
+    # seeds its own lanes in the seed kernel.
+    seeds = SHARDS if want in ("K1", "K2") else 0
+    others = {k: v for k, v in launches.items()
+              if k not in (want, "Seed", "K5" if want == "K4" else want)}
+    check(launches[want] == SHARDS and launches["Seed"] == seeds and not any(others.values())
+          and calls["n"] == 0,
           f"{label}: launches {launches}, plain radiance calls {calls['n']} (want {SHARDS} "
-          f"{want}, nothing else)")
+          f"{want}, {seeds} Seed, nothing else)")
     one_ms, _ = e2e_ms(single_fn)
     n_ms, n_times = e2e_ms(sharded_fn)
     print(f"  {label}: {SHARDS} shards bitwise equal to one launch: {same} (max |diff| "
@@ -2174,7 +2475,8 @@ def sharded_section(tmp):
     res["launches_per_sharded_render"] = {
         "K1": res[k1_cell]["launches"]["K1"], "K2": res[k2_cell]["launches"]["K2"],
         "K3": res[f"whitted room {WHITTED['width']}x{WHITTED['height']} ss{ss}"]["launches"]["K3"],
-        "K4": cell["launches"]["K4"], "K5": cell["launches"]["K5"]}
+        "K4": cell["launches"]["K4"], "K5": cell["launches"]["K5"],
+        "Seed": res[k1_cell]["launches"]["Seed"]}
 
     print("[S2] two processes on cuda:0 (gloo: initialize_multihost, all_gather), Cornell "
           "512x512 x 8 spp through K1")
@@ -2189,12 +2491,15 @@ def sharded_section(tmp):
     one_ms, _ = e2e_ms(lambda: ptk.render_cuda(scene, cam, cfg, device="cuda")[0])
     for line in lines:
         print(f"  rank {line['rank']}: median e2e {line['ms']:.4f} ms (K1 launches per render "
-              f"{line['k1_launches_per_render']}), reps {[round(x, 4) for x in line['times']]}")
+              f"{line['k1_launches_per_render']}, seedings {line['seed_launches_per_render']}), "
+              f"reps {[round(x, 4) for x in line['times']]}")
     print(f"  two-process frame bitwise equal to one process: {same} (max |diff| "
           f"{float(np.abs(frame - one).max()):.3g}); one process e2e {one_ms:.4f} ms; "
           f"the call with process start {wall:.2f} s")
     check(same, "two-process frame differs from the one-process render")
-    check(all(line["k1_launches_per_render"] == 1 for line in lines), f"rank launches {lines}")
+    # Each rank seeds only its own lanes: one seeding per render.
+    check(all(line["k1_launches_per_render"] == line["seed_launches_per_render"] == 1
+              for line in lines), f"rank launches {lines}")
     res["two_process"] = {"bitwise": same, "rank_e2e_ms": [x["ms"] for x in lines],
                           "single_e2e_ms": one_ms, "wall_s": wall}
 
@@ -2549,6 +2854,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only-t", action="store_true",
                     help="build, then run phase T only (K3's debug taps, MT19937, texture "
                     "recovery)")
+    ap.add_argument("--only-seed", action="store_true",
+                    help="build, then run the K1 phases (2-4) and the seed phase (4s) only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("error: no CUDA device; chip_smoke.py runs on a GPU", file=sys.stderr)
@@ -2578,6 +2885,12 @@ def main(argv=None) -> int:
             print(json.dumps({"sharded": sharded_section(tmp)}))
         print(f"  (sharded phase {time.perf_counter() - t:.1f} s)")
         return 0
+    if args.only_seed:
+        t = time.perf_counter()
+        k1 = k1_section()
+        print(json.dumps({"kernels": [k1, seed_section()]}))
+        print(f"  (K1 and seed phases {time.perf_counter() - t:.1f} s)")
+        return 0
     if args.only_t:
         t = time.perf_counter()
         taps, mt, texrec = phase_t()
@@ -2590,6 +2903,9 @@ def main(argv=None) -> int:
     kernels = [k1_section()]
     print(f"  (K1 phases {time.perf_counter() - t:.1f} s)")
     t = time.perf_counter()
+    seed = seed_section()
+    print(f"  (seed phase {time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
     kernels.append(k2_section())
     print(f"  (K2 phases {time.perf_counter() - t:.1f} s)")
     t = time.perf_counter()
@@ -2600,6 +2916,7 @@ def main(argv=None) -> int:
         k5 = k5_section(tmp)
         errs, main_launches, cells, frac, diag, k5_shares = k4_section(tmp)
     kernels.extend(w5_summary(cells, k5, errs, main_launches, frac, diag, k5_shares))
+    kernels.append(seed)
     print(f"  (K4/K5 phases {time.perf_counter() - t:.1f} s)")
     t = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2618,6 +2935,9 @@ def main(argv=None) -> int:
     kernels[0]["launches_per_differentiable_forward"] = grad["forward_backward"]["spp2"][
         "k1_launches_per_forward"]
     kernels[1]["launches_per_differentiable_forward"] = grad["k2"]["k2_launches_per_forward"]
+    # One seeding for the kernel forward, one for the backward's recompute.
+    seed["launches_per_differentiable_step"] = 1 + grad["forward_backward"]["spp2"][
+        "launches_in_backward"]["Seed"]
     print(f"  (grad phase {time.perf_counter() - t:.1f} s)")
     # Phase T after the grad phase, for the same reason: its profiler
     # session holds a gradient step's thousands of kernels.

@@ -28,9 +28,9 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from se195_raytracer_tpu_torch.core.config import RenderConfig
-from se195_raytracer_tpu_torch.core.rng import init_state
 from se195_raytracer_tpu_torch.core.types import Camera, Scene, resolve_device, update_camera
 from se195_raytracer_tpu_torch.driver.render import _sample_once, pixel_coords
+from se195_raytracer_tpu_torch.kernels.seed_kernel import seed_lanes
 
 # The trainable leaves, by field name, in the order the kernel-forward
 # Function takes them.
@@ -90,7 +90,9 @@ def _render_plain_diff(
     (a division, as the JAX package writes it, where the kernels multiply
     by the reciprocal), each bounce checkpointed when ``remat``.
 
-    It is seeded with ``init_state(config.rng, ...)``. The JAX package seeds
+    It is seeded with ``init_state(config.rng, ...)``'s words, drawn by
+    ``seed_lanes`` (the seed kernel on a CUDA device, only for the rows it
+    renders). The JAX package seeds
     its recompute with the MWC generator whatever ``config.rng`` says, so
     under ``rng="counter"`` its backward differentiates another stream than
     its kernel forward evaluated; here the two draw the same stream. Take a
@@ -101,10 +103,11 @@ def _render_plain_diff(
     basis = update_camera(camera, config.width, config.height)
     xs, ys = pixel_coords(config.width, config.height, device=dev)
     n = config.width * config.height
-    state = init_state(config.rng, (n,), config.seed if seed is None else seed, device=dev)
     lo, hi = (0, n) if pixels is None else pixels
+    state = seed_lanes(config.rng, config.seed if seed is None else seed, n, hi - lo,
+                       lane_offset=lo, device=dev)
     if pixels is not None:
-        xs, ys, state = xs[lo:hi], ys[lo:hi], (state[0][lo:hi], state[1][lo:hi])
+        xs, ys = xs[lo:hi], ys[lo:hi]
     accum = torch.zeros((hi - lo, 3), dtype=torch.float32, device=dev)
     for k in range(config.spp):
         r, state = _sample_once(scene, basis, config, xs, ys, state, remat=remat)

@@ -14,8 +14,9 @@ import numpy as np
 import torch
 
 from se195_raytracer_tpu_torch.core.config import RenderConfig
-from se195_raytracer_tpu_torch.core.rng import MWCState, init_state
+from se195_raytracer_tpu_torch.core.rng import MWCState
 from se195_raytracer_tpu_torch.core.types import Camera, Scene, resolve_device, update_camera
+from se195_raytracer_tpu_torch.kernels.seed_kernel import seed_lanes
 from se195_raytracer_tpu_torch.models.smallpt import generate_camera_rays, radiance
 
 
@@ -64,8 +65,12 @@ def _sample_once(scene, basis, config: RenderConfig, xs, ys, state: MWCState,
 
 
 def init_render_state(config: RenderConfig, device=None) -> RenderState:
+    """Fresh plain-path state: the seeds of ``init_state`` in pixel order,
+    drawn by ``seed_lanes`` (the seed kernel on a CUDA device, numpy on the
+    CPU; ``device=None`` is the CPU)."""
     n = config.width * config.height
-    s0, s1 = init_state(config.rng, (n,), config.seed, device=device)
+    device = torch.device("cpu" if device is None else device)
+    s0, s1 = seed_lanes(config.rng, config.seed, n, n, device=device)
     return RenderState(
         accum=torch.zeros((n, 3), dtype=torch.float32, device=device),
         s0=s0,

@@ -47,6 +47,7 @@ from se195_raytracer_tpu_torch.core.types import (
     update_camera,
 )
 from se195_raytracer_tpu_torch.kernels._guard import refuse_grad
+from se195_raytracer_tpu_torch.kernels.seed_kernel import seed_lanes
 from se195_raytracer_tpu_torch.models.smallpt import generate_camera_rays, radiance
 from se195_raytracer_tpu_torch.ops.intersect import sphere_intersect
 
@@ -216,6 +217,26 @@ def ray_layout(width: int, height: int, blocked: bool = False, tile_multiple: in
     inv = np.empty(r, np.int64)
     inv[pix[valid]] = lanes[valid]
     return rp, pix, inv
+
+
+_LANE_TABLES: Dict[Tuple, Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]] = {}
+
+
+def lane_tables(width: int, height: int, blocked: bool, tile_multiple: int, device):
+    """(pix, inv) of ``ray_layout`` on ``device``, copied there once per
+    (width, height, blocked, tile_multiple, device) and kept: int32 [Rp]
+    lane -> pixel ids and int64 [W*H] pixel -> lane, both None for the
+    identity layout. The kernels and the seeding only read them."""
+    key = (width, height, blocked, tile_multiple, str(torch.device(device)))
+    hit = _LANE_TABLES.get(key)
+    if hit is None:
+        if len(_LANE_TABLES) >= 32:
+            _LANE_TABLES.pop(next(iter(_LANE_TABLES)))
+        _, pix, inv = ray_layout(width, height, blocked, tile_multiple)
+        hit = _LANE_TABLES[key] = (
+            (torch.from_numpy(pix).to(device), torch.from_numpy(inv).to(device))
+            if blocked else (None, None))
+    return hit
 
 
 def pt_pass_reference(
@@ -576,8 +597,20 @@ def _check_launch(s0, rng):
         raise ValueError(f"unknown rng {rng!r}")
 
 
+_LIGHTS: Dict[Tuple, torch.Tensor] = {}
+
+
 def _lights_and_outputs(light_indices, s0, s1, acc):
-    lights = torch.tensor(light_indices, dtype=torch.int32, device=s0.device)
+    """K1's int32 light list on the state's device, copied there once per
+    (light indices, device) and kept (the copy would stall every launch;
+    the list is the tuple's value, so an edited scene's new tuple gets its
+    own), and fresh outputs."""
+    key = (tuple(light_indices), str(s0.device))
+    lights = _LIGHTS.get(key)
+    if lights is None:
+        if len(_LIGHTS) >= 32:
+            _LIGHTS.pop(next(iter(_LIGHTS)))
+        lights = _LIGHTS[key] = torch.tensor(key[0], dtype=torch.int32, device=s0.device)
     return lights, (torch.empty_like(s0), torch.empty_like(s1), torch.empty_like(acc))
 
 
@@ -618,10 +651,25 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def init_pt_state(config, device, blocked: bool = False,
                   tile_multiple: int = 1) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Fresh (s0, s1, acc) over the Rp lanes of ``ray_layout``. The real
-    pixels are seeded exactly as the plain path seeds them and laid out in
-    lane order; the pad lanes get the inert seed 2 (the least valid MWC
-    seed; for the counter RNG key = ctr = 2), as render_pallas does."""
+    """Fresh (s0, s1, acc) over the Rp lanes of ``ray_layout`` on ``device``,
+    seeded by ``seed_lanes``: on a CUDA device in the seed kernel, the
+    words laid out in lane order where they are made. The real pixels get
+    the seeds the plain path gives them and the pad lanes the inert seed 2
+    (the least valid MWC seed; for the counter RNG key = ctr = 2), as
+    render_pallas does: bitwise ``init_pt_state_host``."""
+    w, h = config.width, config.height
+    rp = ray_layout(w, h, blocked, tile_multiple)[0]
+    pix = lane_tables(w, h, blocked, tile_multiple, device)[0]
+    s0, s1 = seed_lanes(config.rng, config.seed, w * h, rp, pix=pix, device=device)
+    acc = torch.zeros((3, rp // LANES, LANES), dtype=torch.float32, device=device)
+    return s0, s1, acc
+
+
+def init_pt_state_host(config, device, blocked: bool = False,
+                       tile_multiple: int = 1) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``init_pt_state`` as the JAX package makes it: numpy's draw of the
+    whole frame on the host, padded and permuted there, then copied to
+    ``device``. The oracle the seed kernel is held to."""
     r = config.width * config.height
     rp, pix, _ = ray_layout(config.width, config.height, blocked, tile_multiple)
     s0, s1 = init_state(config.rng, (r,), config.seed, device="cpu")
@@ -670,8 +718,7 @@ def render_cuda(
     blocked = scene.num_spheres > UNROLL_MAX_SPHERES
     lane_offset = 0
     if pixels is None:
-        _, pix_np, inv_np = ray_layout(w, h, blocked)
-        pix = torch.from_numpy(pix_np).to(device) if blocked else None
+        pix, inv = lane_tables(w, h, blocked, 1, device)
         if state is None:
             state = init_pt_state(config, device, blocked) + (0,)
     else:
@@ -679,9 +726,9 @@ def render_cuda(
         if state is not None or not 0 <= lo < hi <= r:
             raise ValueError(f"pixels={pixels}: a range inside 0..{r}, rendered from fresh "
                              "seeds (state=None)")
-        s0, s1 = init_state(config.rng, (r,), config.seed, device="cpu")
+        s0, s1 = seed_lanes(config.rng, config.seed, r, hi - lo, lane_offset=lo, device=device)
         acc = torch.zeros((3, hi - lo), dtype=torch.float32, device=device)
-        state = (s0[lo:hi].to(device), s1[lo:hi].to(device), acc, 0)
+        state = (s0, s1, acc, 0)
         pix = torch.arange(lo, hi, dtype=torch.int32, device=device) if blocked else None
         lane_offset = 0 if blocked else lo
     s0, s1, acc, start = state
@@ -696,5 +743,5 @@ def render_cuda(
     if pixels is not None:
         return acc.T, state
     flat = acc.reshape(3, -1)
-    flat = flat[:, torch.from_numpy(inv_np).to(device)] if blocked else flat[:, :r]
+    flat = flat[:, inv] if blocked else flat[:, :r]
     return flat.T.reshape(h, w, 3), state

@@ -28,7 +28,8 @@ import torch
 
 from se195_raytracer_tpu_torch.core.config import RenderConfig
 from se195_raytracer_tpu_torch.core.types import Camera, Scene, update_camera
-from se195_raytracer_tpu_torch.driver.render import RenderState, init_render_state, render_steps
+from se195_raytracer_tpu_torch.driver.render import RenderState, render_steps
+from se195_raytracer_tpu_torch.kernels.seed_kernel import seed_lanes
 from se195_raytracer_tpu_torch.parallel.mesh import (
     Mesh,
     gather_shards,
@@ -105,15 +106,23 @@ def render_sharded(
     shards do not divide the pixel count."""
     if mesh is None:
         mesh = make_mesh()
-    bounds = shard_bounds(config.width * config.height, mesh)
+    n = config.width * config.height
+    bounds = shard_bounds(n, mesh)
     if state is None:
-        state = shard_render_state(init_render_state(config, device="cpu"), mesh)
+        # Each shard seeds its own pixels on its own device.
+        parts, sample = [], 0
+        for k in mesh.local_shards:
+            dev, (lo, hi) = mesh.devices[k], bounds[k]
+            s0, s1 = seed_lanes(config.rng, config.seed, n, hi - lo, lane_offset=lo, device=dev)
+            parts.append((torch.zeros((hi - lo, 3), dtype=torch.float32, device=dev), s0, s1))
+    else:
+        parts, sample = zip(_local(state.accum, mesh), _local(state.s0, mesh),
+                            _local(state.s1, mesh)), state.sample
     scenes, cams = replicate(scene, mesh), replicate(camera, mesh)
-    parts = zip(_local(state.accum, mesh), _local(state.s0, mesh), _local(state.s1, mesh))
     outs = []
     for k, (accum, s0, s1) in zip(mesh.local_shards, parts):
         dev = mesh.devices[k]
-        st = RenderState(accum.to(dev), s0.to(dev), s1.to(dev), state.sample)
+        st = RenderState(accum.to(dev), s0.to(dev), s1.to(dev), sample)
         outs.append(render_steps(scenes[dev], cams[dev], st, config, config.spp,
                                  pixel_range=bounds[k]))
     dev0 = mesh.devices[mesh.local_shards[0]]
@@ -133,9 +142,10 @@ def render_cuda_sharded(
     """Progressive render through K1 (K2 above 96 spheres) with the lanes
     sharded over ``mesh`` (twin of ``render_pallas_sharded``): one launch
     per shard. The layout is ``ray_layout(..., tile_multiple=mesh.size)``,
-    so every shard holds whole 16 x 128 tiles; the seeds are drawn over the
-    whole frame in lane order and sliced. A K1 shard passes its first lane
-    as the lane offset, a K2 shard its slice of the pix table; both trace
+    so every shard holds whole 16 x 128 tiles; each shard seeds only its own
+    lanes, on its own device, from the whole frame's stream (``seed_lanes``;
+    the seed kernel on a CUDA device). A K1 shard passes its first lane as
+    the lane offset, a K2 shard its slice of the pix table; both trace
     absolute pixel ids, so the image is bitwise ``render_cuda``'s.
 
     Returns ([H, W, 3] radiance, (s0, s1, acc, sample)); the state holds
@@ -144,7 +154,7 @@ def render_cuda_sharded(
     from se195_raytracer_tpu_torch.kernels.pt_kernel import (
         LANES,
         UNROLL_MAX_SPHERES,
-        init_pt_state,
+        lane_tables,
         pack_camera,
         pack_scene,
         pt_multi_pass,
@@ -159,27 +169,31 @@ def render_cuda_sharded(
         mesh = make_mesh()
     w, h = config.width, config.height
     blocked = scene.num_spheres > UNROLL_MAX_SPHERES
-    rp, pix_np, inv_np = ray_layout(w, h, blocked, mesh.size)
+    rp = ray_layout(w, h, blocked, mesh.size)[0]
     per = rp // mesh.size
+    scenes, cams = replicate(scene, mesh), replicate(camera, mesh)
+    tabs = {dev: (pack_scene(scenes[dev]), pack_camera(update_camera(cams[dev], w, h)),
+                  lane_tables(w, h, blocked, mesh.size, dev)) for dev in scenes}
     if state is None:
-        s0, s1, acc = init_pt_state(config, "cpu", blocked, mesh.size)
-        s0, s1 = _frame_part(s0, mesh), _frame_part(s1, mesh)
-        acc = _frame_part(acc.reshape(3, rp), mesh, dim=1)
-        start = 0
+        # Each shard seeds only its own lanes, on its own device.
+        parts, start = [], 0
+        for k in mesh.local_shards:
+            dev, lo = mesh.devices[k], k * per
+            pix = tabs[dev][2][0][lo:lo + per] if blocked else None
+            s0k, s1k = seed_lanes(config.rng, config.seed, w * h, per, pix=pix,
+                                  lane_offset=0 if blocked else lo, device=dev)
+            parts.append((s0k, s1k, torch.zeros((3, per), dtype=torch.float32, device=dev)))
     else:
         s0, s1, acc, start = state
-        acc = acc.reshape(3, -1)
-    scenes, cams = replicate(scene, mesh), replicate(camera, mesh)
-    tabs = {dev: (pack_scene(scenes[dev]), pack_camera(update_camera(cams[dev], w, h)))
-            for dev in scenes}
+        parts = zip(_local(s0, mesh), _local(s1, mesh), _local(acc.reshape(3, -1), mesh, dim=1))
     outs = []
-    parts = zip(_local(s0, mesh), _local(s1, mesh), _local(acc, mesh, dim=1))
     for k, (s0k, s1k, acck) in zip(mesh.local_shards, parts):
         dev = mesh.devices[k]
         lo = k * per
-        pix = torch.from_numpy(pix_np[lo:lo + per]).to(dev) if blocked else None
+        scene_tab, cam_tab, (pix_all, inv) = tabs[dev]
+        pix = pix_all[lo:lo + per] if blocked else None
         outs.append(pt_multi_pass(
-            *tabs[dev], start, s0k.to(dev).contiguous(), s1k.to(dev).contiguous(),
+            scene_tab, cam_tab, start, s0k.to(dev).contiguous(), s1k.to(dev).contiguous(),
             acck.to(dev).contiguous().reshape(3, per // LANES, LANES), pix,
             num_samples=config.spp, width=w, height=h, max_depth=config.max_depth,
             direct_only=config.integrator == "dl", light_indices=scene.light_indices,
@@ -187,7 +201,7 @@ def render_cuda_sharded(
         ))
     dev0 = mesh.devices[mesh.local_shards[0]]
     flat = gather_shards([o[2].reshape(3, per) for o in outs], mesh, dim=1)
-    flat = flat[:, torch.from_numpy(inv_np).to(dev0)] if blocked else flat[:, :w * h]
+    flat = flat[:, tabs[dev0][2][1]] if blocked else flat[:, :w * h]
     new_state = (torch.cat([o[0].to(dev0) for o in outs]),
                  torch.cat([o[1].to(dev0) for o in outs]),
                  torch.cat([o[2].to(dev0) for o in outs], dim=1),

@@ -1,0 +1,233 @@
+"""The seed init of K1/K2's lane state (kernels/seed_kernel.py) against the
+JAX package's ``init_mwc_state`` / ``init_counter_state`` and against the
+host route the port took before (``init_pt_state_host``), all bitwise.
+
+- the plain PyTorch version (``seed_lanes_reference``: PCG64 jump-ahead in
+  16-bit limbs, XSL-RR, Lemire, the rejection scan and shift) against JAX's
+  ``init_mwc_state`` on several shapes and seeds, and at 512^2 on the three
+  seeds below 2600 whose stream rejects a word there; without the shift
+  those seeds fail;
+- the counter keys against JAX's ``init_counter_state``, with a pixel
+  offset;
+- the lane layouts (K1 padded, K2's blocked ``pix`` order, ``tile_multiple``,
+  a pixel range, each shard of a split) against ``init_pt_state_host``;
+- the list's overflow raises; the device caches of ``pt_kernel``;
+- the kernel on the card (``cuda``; skips here).
+
+The JAX package is imported inside the tests that use it, so that the
+``cuda`` tests run on a GPU machine without JAX:
+``python -m pytest tests/test_torch_seed_init.py --noconftest -m cuda``."""
+
+import numpy as np
+import pytest
+import torch
+
+from se195_raytracer_tpu_torch.core.config import RenderConfig
+from se195_raytracer_tpu_torch.core.rng import init_state
+from se195_raytracer_tpu_torch.kernels import pt_kernel as ptk
+from se195_raytracer_tpu_torch.kernels import seed_kernel as sk
+
+SIDE = 512
+# Seeds whose first 2 * 512^2 draws meet exactly one rejected word, and its
+# raw index: the first flat draw that the rejection shifts.
+REJECTING = {125: 434578, 2425: 305335, 2508: 252319}
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().astype(np.uint32)
+
+
+def _jax_mwc(shape, seed):
+    from se195_raytracer_tpu.core import rng as jrng
+
+    s0, s1 = jrng.init_mwc_state(shape, seed)
+    return np.asarray(s0).reshape(-1), np.asarray(s1).reshape(-1)
+
+
+@pytest.mark.parametrize("shape", [(1,), (37, 5), (480 * 640,)])
+@pytest.mark.parametrize("seed", [0, 1, 7])
+def test_plain_mwc_matches_jax(shape, seed):
+    n = int(np.prod(shape))
+    s0, s1 = sk.seed_lanes_reference("mwc", seed, n, n)
+    j0, j1 = _jax_mwc(shape, seed)
+    np.testing.assert_array_equal(_np(s0), j0)
+    np.testing.assert_array_equal(_np(s1), j1)
+
+
+@pytest.mark.parametrize("seed", sorted(REJECTING))
+def test_plain_mwc_rejecting_seeds_at_512(seed):
+    """One rejected word, at the index the stream gives it; every draw
+    bitwise JAX's, and the draws from that index on wrong without the
+    shift."""
+    n = SIDE * SIDE
+    rejected = sk.scan_rejections_reference(seed, n)
+    assert rejected.tolist() == [REJECTING[seed]]
+    s0, s1 = sk.seed_lanes_reference("mwc", seed, n, n)
+    want = np.concatenate(_jax_mwc((n,), seed))
+    np.testing.assert_array_equal(np.concatenate([_np(s0), _np(s1)]), want)
+    flat = torch.arange(2 * n, dtype=torch.int64)
+    unshifted = _np(sk.mwc_draws_reference(seed, flat, rejected[:0]))
+    wrong = np.nonzero(unshifted != want)[0]
+    assert wrong[0] == REJECTING[seed] and wrong.size == 2 * n - REJECTING[seed]
+
+
+def test_rejection_constants():
+    assert sk.RANGE == 2**31 - 1 - 2 and sk.REJECT_BELOW == 6
+    assert sk.pcg64_state(3) == (int(np.random.PCG64(3).state["state"]["state"]),
+                                 int(np.random.PCG64(3).state["state"]["inc"]))
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**40 + 3])
+@pytest.mark.parametrize("shape,offset", [((37, 5), 0), ((1000,), 12345)])
+def test_plain_counter_matches_jax(seed, shape, offset):
+    from se195_raytracer_tpu.core import rng as jrng
+
+    count = int(np.prod(shape))
+    key, ctr = sk.seed_lanes_reference("counter", seed, offset + count, count,
+                                       lane_offset=offset)
+    jkey, jctr = jrng.init_counter_state(shape, seed, pixel_offset=offset)
+    np.testing.assert_array_equal(_np(key), np.asarray(jkey).reshape(-1))
+    np.testing.assert_array_equal(_np(ctr), np.asarray(jctr).reshape(-1))
+
+
+def _cfg(w, h, rng, seed):
+    return RenderConfig(width=w, height=h, spp=1, seed=seed, rng=rng)
+
+
+@pytest.mark.parametrize("rng", ["mwc", "counter"])
+@pytest.mark.parametrize("blocked,tile_multiple", [(False, 1), (True, 1), (False, 8), (True, 8)])
+def test_lane_layouts_match_host_route(rng, blocked, tile_multiple):
+    """K1 (identity, padded) and K2 (blocked pix order) lanes, with and
+    without 8-tile rounding: the plain version, the CPU route and the host
+    route give the same state, pad lanes 2."""
+    cfg = _cfg(100, 70, rng, 125)
+    r = cfg.width * cfg.height
+    rp, pix, _ = ptk.ray_layout(cfg.width, cfg.height, blocked, tile_multiple)
+    h0, h1, hacc = ptk.init_pt_state_host(cfg, "cpu", blocked, tile_multiple)
+    c0, c1, cacc = ptk.init_pt_state(cfg, "cpu", blocked, tile_multiple)
+    p0, p1 = sk.seed_lanes_reference(rng, cfg.seed, r, rp,
+                                     pix=torch.from_numpy(pix) if blocked else None)
+    assert h0.shape == (rp,) and h0.dtype == c0.dtype == p0.dtype == torch.uint32
+    for a, b, c in ((h0, c0, p0), (h1, c1, p1)):
+        np.testing.assert_array_equal(_np(a), _np(b))
+        np.testing.assert_array_equal(_np(a), _np(c))
+    assert torch.equal(hacc, cacc) and not hacc.any()
+    pad = np.asarray(pix) >= r
+    assert pad.any() and (_np(h0)[pad] == 2).all() and (_np(h1)[pad] == 2).all()
+
+
+@pytest.mark.parametrize("rng", ["mwc", "counter"])
+def test_pixel_range_and_shards_match_whole_frame(rng):
+    """A pixel range (``render_cuda(pixels=...)``'s seeding) and each of 8
+    shards of the 8-tile layouts seed only their own lanes, bitwise the
+    whole frame's state at those lanes."""
+    cfg = _cfg(100, 70, rng, 2508)
+    r = cfg.width * cfg.height
+    w0, w1 = init_state(rng, (r,), cfg.seed, device="cpu")
+    lo, hi = 1234, 5678
+    for fn in (sk.seed_lanes, sk.seed_lanes_reference):
+        s0, s1 = fn(rng, cfg.seed, r, hi - lo, lane_offset=lo, device="cpu")
+        assert torch.equal(s0, w0[lo:hi]) and torch.equal(s1, w1[lo:hi])
+    for blocked in (False, True):
+        rp, pix, _ = ptk.ray_layout(cfg.width, cfg.height, blocked, 8)
+        h0, h1, _ = ptk.init_pt_state_host(cfg, "cpu", blocked, 8)
+        per = rp // 8
+        for k in range(8):
+            a, b = k * per, (k + 1) * per
+            kw = (dict(pix=torch.from_numpy(pix[a:b])) if blocked
+                  else dict(lanes=per, lane_offset=a))
+            for fn in (sk.seed_lanes, sk.seed_lanes_reference):
+                s0, s1 = fn(rng, cfg.seed, r, device="cpu", **kw)
+                assert torch.equal(s0, h0[a:b]) and torch.equal(s1, h1[a:b]), (blocked, k)
+
+
+def test_rejection_list_overflow_raises():
+    n = SIDE * SIDE
+    with pytest.raises(RuntimeError, match="more than the list holds"):
+        sk.scan_rejections_reference(125, n, capacity=0)
+    with pytest.raises(RuntimeError, match="more than the list holds"):
+        sk.seed_lanes_reference("mwc", 125, n, 8, capacity=0)
+    # A list of one holds seed 125's one rejection.
+    assert sk.scan_rejections_reference(125, n, capacity=1).tolist() == [REJECTING[125]]
+
+
+def test_seed_lanes_arguments():
+    with pytest.raises(ValueError, match="lane_offset"):
+        sk.seed_lanes("mwc", 0, 10, pix=torch.arange(4, dtype=torch.int32), lane_offset=1,
+                      device="cpu")
+    with pytest.raises(ValueError, match="int32"):
+        sk.seed_lanes("mwc", 0, 10, pix=torch.arange(4), device="cpu")
+    with pytest.raises(ValueError, match="rng kind"):
+        sk.seed_lanes("threefry", 0, 10, 4, device="cpu")
+
+
+def test_seed_lanes_on_cuda_without_a_card_raises():
+    """No host fallback: asked for a CUDA device, it launches or raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises((RuntimeError, AssertionError)):
+        sk.seed_lanes("mwc", 0, 64, 64, device="cuda")
+
+
+def test_device_caches():
+    """``lane_tables`` and K1's light list are made once per key and equal
+    what they replace; a new light tuple gets its own list."""
+    pix, inv = ptk.lane_tables(100, 70, True, 1, "cpu")
+    _, pix_np, inv_np = ptk.ray_layout(100, 70, True)
+    assert pix.dtype == torch.int32 and inv.dtype == torch.int64
+    np.testing.assert_array_equal(pix.numpy(), pix_np)
+    np.testing.assert_array_equal(inv.numpy(), inv_np)
+    assert ptk.lane_tables(100, 70, True, 1, "cpu")[0] is pix
+    assert ptk.lane_tables(100, 70, False, 1, "cpu") == (None, None)
+    s = torch.zeros(4, dtype=torch.uint32)
+    acc = torch.zeros(3, 1, 4)
+    a, _ = ptk._lights_and_outputs((3, 7), s, s, acc)
+    b, _ = ptk._lights_and_outputs((3, 7), s, s, acc)
+    c, _ = ptk._lights_and_outputs((8,), s, s, acc)
+    assert a is b and a.tolist() == [3, 7] and a.dtype == torch.int32 and c.tolist() == [8]
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA device")
+@pytest.mark.parametrize("seed", [0, 125, 2425, 2508])
+def test_seed_kernel_bitwise_on_cuda(seed):
+    """The kernel against numpy's draw (the host route) at 512^2: K1 and K2
+    layouts, both RNGs, 8 shards; the overflow raises on the card too."""
+    for rng in ("mwc", "counter"):
+        cfg = _cfg(SIDE, SIDE, rng, seed)
+        for blocked in (False, True):
+            h0, h1, _ = ptk.init_pt_state_host(cfg, "cpu", blocked)
+            k0, k1, _ = ptk.init_pt_state(cfg, "cuda", blocked)
+            torch.cuda.synchronize()
+            assert torch.equal(k0.cpu(), h0) and torch.equal(k1.cpu(), h1), (rng, blocked)
+            rp, pix, _ = ptk.ray_layout(SIDE, SIDE, blocked, 8)
+            h0, h1, _ = ptk.init_pt_state_host(cfg, "cpu", blocked, 8)
+            per = rp // 8
+            for k in range(8):
+                a, b = k * per, (k + 1) * per
+                kw = (dict(pix=torch.from_numpy(pix[a:b]).cuda()) if blocked
+                      else dict(lanes=per, lane_offset=a))
+                s0, s1 = sk.seed_lanes(rng, seed, SIDE * SIDE, device="cuda", **kw)
+                assert torch.equal(s0.cpu(), h0[a:b]) and torch.equal(s1.cpu(), h1[a:b])
+    if seed in REJECTING:
+        with pytest.raises(RuntimeError, match="more than the list holds"):
+            sk.seed_lanes("mwc", seed, SIDE * SIDE, 8, device="cuda", capacity=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA device")
+def test_seed_kernel_under_jvp_on_cuda():
+    """The pixel-gradient check runs the plain recompute, and so the seed
+    kernel, under torch.func.jvp: the seeds come out as plain tensors, the
+    same words as outside it (s1 of pixels 172400.. crosses seed 125's
+    rejection at draw 434578)."""
+    want = sk.seed_lanes("mwc", 125, SIDE * SIDE, 64, lane_offset=172400, device="cuda")
+
+    def f(x):
+        s0, s1 = sk.seed_lanes("mwc", 125, SIDE * SIDE, 64, lane_offset=172400, device="cuda")
+        assert torch.equal(s0, want[0]) and torch.equal(s1, want[1])
+        return x * 2.0
+
+    x = torch.ones(3, device="cuda")
+    _, tangent = torch.func.jvp(f, (x,), (x,))
+    assert torch.equal(tangent, 2.0 * x)
