@@ -73,7 +73,8 @@ S. the sharded paths (parallel/), 8 shards on cuda:0, each image held
    entry, room5 800x600 spp 8 through K4; two processes on the card (gloo,
    ``initialize_multihost``, ``all_gather``) rendering Cornell 512x512 x 8
    spp, bitwise the one-process frame; sharded gradients at Cornell 128x128
-   spp 1 against one device (rtol 1e-5); the 3,908-sphere
+   spp 1 against one device (rtol 1e-5; one K1 and one K1b launch a
+   shard); the 3,908-sphere
    ``complex_scene(max_depth=5)`` at 512x512 through K2 (past 48 KB of
    shared memory) against its plain version under K2's contract, and a
    1,000-primitive Whitted scene through both K3 entries, bitwise against
@@ -83,20 +84,30 @@ S. the sharded paths (parallel/), 8 shards on cuda:0, each image held
    line; ``render --scene tests/fixtures/scenes/cornell_scn.scn
    --profile DIR``, whose trace holds K1;
 G. the differentiable path (driver/optimize.py), Cornell 512x512, PT, mwc,
-   seed 0: ``render_differentiable`` at spp 2 and 8 is one K1 launch and no
-   plain ``radiance`` (a counting wrapper this script installs), its image
-   under K1's contract against the plain primal, its gradients (L2 to the
-   start scene's image, every leaf) finite and equal to the plain path's
-   VJP of the same cotangent, the backward launching no kernel; the
-   counter RNG's forward against its recompute; K2 on ``complex`` 128x128
-   (one K2 launch, finite gradients); the six pixel-gradient checks of
-   the gradient benchmark at 512x512 spp 2 (JVP against central finite
-   differences, hard and soft 0.5, bounded but for the hard light centre);
-   10 inverse-rendering steps hard and soft; forward+backward ms per step
-   at spp 2 and 8, hard and soft, with the K1 / recompute / VJP split, the
-   idle share and peak memory, and an spp-2 step's peak memory with remat
-   on and off; whitted5 soft (room5 320x240, the plain tracer) and its
-   light-position gradient;
+   seed 0: ``render_differentiable`` at spp 2 and 8 is one seeding and one
+   K1 launch forward and one seeding and one K1b launch
+   (csrc/pt_backward_kernel.cu) backward, with no plain ``radiance``
+   either way (a counting wrapper this script installs); its image under
+   K1's contract against the plain primal; its gradients (L2 to the start
+   scene's image, every leaf) finite and each sphere's row within
+   ``GRAD_ROW_REL`` of its own scale (``grad_row_error``) of the plain
+   path's VJP of the same cotangent; K1b's replayed primal
+   bitwise ``_render_plain_diff``'s (PT and DL, mwc and counter, spp 2
+   and 8), K1b run twice bitwise or not (reported); the relaxed
+   estimator's route, max_depth 20 (past K1b's record) and K2's on
+   ``complex`` 128x128 keep the plain backward, equal to the plain VJP
+   (rtol 1e-5); the counter RNG's forward
+   against its recompute; the six pixel-gradient checks of the gradient
+   benchmark at 512x512 spp 2 (JVP against central finite differences,
+   hard and soft 0.5, bounded but for the hard light centre); 10
+   inverse-rendering steps hard (K1b's route and the plain route, their
+   losses side by side) and soft; forward+backward ms per step at spp 2
+   and 8, hard (split forward / K1b alone / the rest on the host, the
+   plain route's step beside it) and soft, the idle share and peak memory,
+   and an spp-2 plain step's peak memory with remat on and off; K1b's
+   bound from the work the plain version counts on the same lanes and its
+   plain version's time; whitted5 soft (room5 320x240, the plain tracer)
+   and its light-position gradient;
 T. last, K3's debug taps (``whitted_taps_cuda``: tres, attr and shade on
    room and grid at 800x600 3x3, hit_bias 0 and 0.005, each bitwise the
    plain ``whitted_taps``; each tap's ms beside its bound); MT19937 (1,000
@@ -111,10 +122,11 @@ T. last, K3's debug taps (``whitted_taps_cuda``: tres, attr and shade on
 13. prints the grad phase's numbers (``{"grad": {...}}``), the sharded
     phase's (``{"sharded": {...}}``), phase T's (``{"taps"}``,
     ``{"mt19937"}``, ``{"texrec"}``), one JSON line per kernel
-    (``{"kernels": [...]}``, K1-K5 and the seed kernel, K1 and K2 with their launches per
-    differentiable forward, each with its launches in the sharded render
-    that runs it, as counted there; K5's are the room5 K4 launches it ran
-    inside)
+    (``{"kernels": [...]}``, K1-K5, the seed kernel and K1b, K1 and K2 with their launches
+    per differentiable forward, K1b with its launches per differentiable
+    step and per 8-shard gradient, each other with its launches in the
+    sharded render that runs it, as counted there; K5's are the room5 K4
+    launches it ran inside)
     and, last, ``{"ok": true, "device": {...}}``.
 
 ``--only-grad`` builds the kernels and runs K1's first check and the grad
@@ -172,6 +184,21 @@ OPS_SHADOW_SETUP = 45  # per shadow ray: light sample, direction, weights
 OPS_SPHERE_NEAREST = 15  # per sphere test of a nearest sweep
 OPS_SPHERE_SHADOW = 12  # per sphere test of a shadow sweep
 OPS_BOUND = 14  # per block-bound test (block_possible)
+# K1b's reverse sweep, FP32 ops counted from csrc/pt_backward_kernel.cu
+# (lower figures where unsure): per recorded bounce (the hit frame
+# recomputed, the adjoints of the normal, the hit distance and the branch),
+# per light sample whose shadow ray passed (recomputed and differentiated),
+# per camera ray; and the bytes a lane must move (its two seed words and its
+# cotangent in).
+OPS_ADJ_BOUNCE = 150
+OPS_ADJ_LIGHT = 90
+OPS_ADJ_CAMERA = 40
+K1B_BYTES_PER_LANE = 8 + 12
+# K1b's replay must round as the plain path does (no FMA contraction), so
+# each of its products and sums is an instruction of its own: half the FMA
+# rate's 67 TFLOP/s. Its reverse sweep has no such need, so its bound takes
+# the FMA rate.
+PEAK_FP32_OPS_NO_FMA = PEAK_FP32_FLOPS / 2
 W_OPS_PLANE, W_OPS_SPHERE = 15, 20  # per primitive test of a Whitted sweep
 W_OPS_LIGHT = 45  # per light of a lit Whitted node: direction, N.L, Phong
 W_OPS_NODE = 40  # per live Whitted node: hit point, normal, contribution, children
@@ -210,16 +237,29 @@ K4_DET_TOL = 1e-5
 # cosine decay to GRAD_ALPHA); whitted5 soft on room5 at W5_GRAD.
 GRAD_SPPS = (2, 8)
 GRAD_SOFT = 0.5
+GRAD_DEEP = (20, 64)  # max_depth past K1b's 16-bounce record, frame side
 GRAD_K2 = (128, 128, 1)
 GRAD_STEPS = 10
 GRAD_LR, GRAD_ALPHA = 0.15, 0.25
 GRAD_GEOM_MULT = {"hard": 10.0, "soft": 3.0}
 W5_GRAD = dict(width=320, height=240, spp=1, soft=0.3, light=4)
-# A gradient through the kernel-forward Function against the plain path's
-# VJP of the same cotangent: bitwise where the card's scatter-adds (the
-# backward of ``scene.center[hid]``) are run-to-run bitwise, else within
-# rtol 1e-5 and atol 1e-6 of the leaf's largest gradient.
+# A gradient of a route whose backward is the plain path's autograd (the
+# relaxed estimator; K2's scenes) against the plain path's VJP of the same
+# cotangent: bitwise where the card's scatter-adds (the backward of
+# ``scene.center[hid]``) are run-to-run bitwise, else within rtol 1e-5 and
+# atol 1e-6 of the leaf's largest gradient.
 GRAD_RTOL, GRAD_ATOL_REL = 1e-5, 1e-6
+# K1b (the hard backward, at most 96 spheres) against the plain path's VJP
+# of the same cotangent: pt_backward_kernel.grad_row_error, each sphere's
+# row of a leaf within GRAD_ROW_REL of that row's largest gradient (floored
+# at GRAD_ROW_FLOOR of the leaf's), so that a fault confined to the glass
+# or the mirror sphere is not measured against the walls' gradients. Its
+# replayed primal is the plain path's bitwise, so it takes every branch the
+# plain path takes; the gradients then differ by the adjoint's arithmetic
+# (a sqrt's derivative in float32, where the plain path takes it in float64
+# and rounds) and by the order of the sums (per warp in shared memory, then
+# per block, where autograd sums per sphere over all lanes). The bar sits
+# between that reading and the faults tools/k1b_fault_check.py plants.
 # The full-frame pixel checks: max |JVP - FD| as a % of the FD image's max.
 # None: printed, not checked (the hard estimator's light centre is the
 # silhouette case).
@@ -359,6 +399,7 @@ def check_resume(scene_name, width, height, device):
 
 
 def zero_counters():
+    from se195_raytracer_tpu_torch.kernels import pt_backward_kernel as pbk
     from se195_raytracer_tpu_torch.kernels import pt_kernel as ptk
     from se195_raytracer_tpu_torch.kernels import seed_kernel as sk
     from se195_raytracer_tpu_torch.kernels import texel_kernel as tk
@@ -367,7 +408,7 @@ def zero_counters():
 
     for fn in (ptk.pt_multi_pass, ptk.pt_blocked_pass, wk.whitted_trace_cuda,
                wk.whitted_frame_cuda, wk.whitted_taps_cuda, w5k.whitted5_trace_cuda,
-               tk.texel_fetch_cuda, sk.seed_lanes):
+               tk.texel_fetch_cuda, sk.seed_lanes, pbk.pt_backward_cuda):
         fn.launches = 0
     w5k.whitted5_trace_cuda.texel_launches = 0
 
@@ -375,7 +416,9 @@ def zero_counters():
 def read_counters():
     """Launches by kernel. K5 counts the K4 launches whose scene is textured,
     where its fetch runs inside K4, plus launches of its own entry; Seed
-    counts the seed kernel's seedings (``seed_lanes``)."""
+    counts the seed kernel's seedings (``seed_lanes``); K1b the backward's
+    calls (``pt_backward_cuda``: the kernel and its fixed-order sum)."""
+    from se195_raytracer_tpu_torch.kernels import pt_backward_kernel as pbk
     from se195_raytracer_tpu_torch.kernels import pt_kernel as ptk
     from se195_raytracer_tpu_torch.kernels import seed_kernel as sk
     from se195_raytracer_tpu_torch.kernels import texel_kernel as tk
@@ -387,7 +430,7 @@ def read_counters():
                    + wk.whitted_taps_cuda.launches),
             "K4": w5k.whitted5_trace_cuda.launches,
             "K5": w5k.whitted5_trace_cuda.texel_launches + tk.texel_fetch_cuda.launches,
-            "Seed": sk.seed_lanes.launches}
+            "Seed": sk.seed_lanes.launches, "K1b": pbk.pt_backward_cuda.launches}
 
 
 # Launches by kernel in each scene's main path (run_main_path).
@@ -1035,6 +1078,77 @@ def compare_grads(ga, gb, tag):
     return bitwise, rel
 
 
+def compare_k1b(ga, gb, tag):
+    """Each leaf's gradient through K1b against the plain path's: finite, and
+    each row within ``GRAD_ROW_REL`` of its own largest plain gradient
+    (``grad_row_error``). Returns (the worst row's error, max absolute
+    difference) over the leaves."""
+    import torch
+
+    from se195_raytracer_tpu_torch.kernels.pt_backward_kernel import GRAD_ROW_REL, grad_row_error
+
+    rows = grad_row_error(ga, gb)
+    abs_err = 0.0
+    for k in ga:
+        check(bool(torch.isfinite(ga[k]).all()), f"{tag} {k}: not finite")
+        abs_err = max(abs_err, (ga[k] - gb[k]).abs().max().item())
+        check(rows[k] <= GRAD_ROW_REL, f"{tag} {k}: a row's max |diff| is {rows[k]:.3g} of its "
+                                       f"largest gradient (> {GRAD_ROW_REL})")
+    rel = max(rows.values())
+    print(f"  {tag}: worst row max |diff| / max |grad| {rel:.3g} (bar {GRAD_ROW_REL}; "
+          + ", ".join(f"{k} {v:.3g}" for k, v in rows.items()) + f"), max |diff| {abs_err:.3g}")
+    return rel, abs_err
+
+
+def plain_basis(camera, cfg):
+    """``update_camera``'s basis of ``camera``, detached: K1b's camera input."""
+    from se195_raytracer_tpu_torch.core.types import CameraBasis, update_camera
+
+    b = update_camera(camera, cfg.width, cfg.height)
+    return CameraBasis(b.orig.detach(), b.dir.detach(), b.x.detach(), b.y.detach())
+
+
+def k1b_primal(scene, camera, cfg, cot, tag):
+    """K1b's replayed primal against ``_render_plain_diff`` under no_grad,
+    which must be bitwise, and K1b run twice on one cotangent (reported).
+    Returns (primal bitwise, repeat bitwise)."""
+    import torch
+
+    from se195_raytracer_tpu_torch.driver.optimize import _render_plain_diff
+    from se195_raytracer_tpu_torch.kernels.pt_backward_kernel import pt_backward_cuda
+
+    basis = plain_basis(camera, cfg)
+    with torch.no_grad():
+        prim = _render_plain_diff(scene, camera, cfg).reshape(-1, 3)
+    flat, img = pt_backward_cuda(scene, basis, cfg, cot, image=True)
+    repeat = bool(torch.equal(flat, pt_backward_cuda(scene, basis, cfg, cot)))
+    same = bool(torch.equal(img, prim))
+    lanes = int((img != prim).any(dim=1).sum())
+    print(f"  {tag}: K1b's replayed primal bitwise the plain primal {same} ({lanes} lanes "
+          f"differ); K1b twice on one cotangent bitwise {repeat}")
+    check(same, f"{tag}: K1b's replayed primal differs from the plain path's on {lanes} lanes")
+    return same, repeat
+
+
+def k1b_against_plain(scene, camera, cfg, cot, tag):
+    """K1b against its plain version (``pt_backward_reference``) on one
+    cotangent: the primal bitwise, each field's rows within ``GRAD_ROW_REL``."""
+    from se195_raytracer_tpu_torch.kernels.pt_backward_kernel import (
+        pt_backward_cuda,
+        pt_backward_reference,
+        unpack_grad,
+    )
+
+    same, repeat = k1b_primal(scene, camera, cfg, cot, tag)
+    basis = plain_basis(camera, cfg)
+    n = scene.num_spheres
+    a = unpack_grad(pt_backward_cuda(scene, basis, cfg, cot), n)
+    b = unpack_grad(pt_backward_reference(scene, basis, cfg, cot), n)
+    rel, abs_err = compare_k1b(a, b, f"{tag} K1b against pt_backward_reference")
+    return {"primal_bitwise": same, "repeat_bitwise": repeat, "grad_max_rel_diff": rel,
+            "grad_max_abs_diff": abs_err}
+
+
 def grad_step_fn(scene0, camera0, cfg, target, remat=True, kernel=True):
     """A forward+backward step of the L2 loss over every leaf: through
     ``render_differentiable`` (kernel forward when ``kernel`` and the hard
@@ -1061,10 +1175,13 @@ def grad_step_fn(scene0, camera0, cfg, target, remat=True, kernel=True):
 def grad_timing(scene, camera, cfg, target, label, profiled):
     """Forward+backward ms per step (median of 3 when ``profiled``, else of
     2), its split and the step's peak memory, on the host clock
-    (synchronised); when ``profiled``, the card's idle share over a step."""
+    (synchronised); when ``profiled``, the card's idle share over a step.
+    The hard step splits as the forward (K1 and its host setup), K1b alone
+    (CUDA events, on the step's cotangent) and the rest on the host, and
+    the plain route's step (the plain path both ways) is timed beside it."""
     import torch
 
-    from se195_raytracer_tpu_torch.driver.optimize import _render_plain_diff
+    from se195_raytracer_tpu_torch.kernels.pt_backward_kernel import pt_backward_cuda
     from se195_raytracer_tpu_torch.kernels.pt_kernel import pt_multi_pass
 
     hard = cfg.soft_edges == 0.0
@@ -1077,16 +1194,30 @@ def grad_timing(scene, camera, cfg, target, label, profiled):
     out = {"step_ms": step_ms, "step_reps_ms": step_all, "forward_ms": fwd_ms,
            "peak_mem_bytes": peak}
     if hard:
-        # K1 alone on the forward's inputs, by CUDA events.
+        # K1 alone on the forward's inputs, and K1b alone on the step's
+        # cotangent (the L2's, 2 (img - target) / numel), by CUDA events.
         tab, cam, (s0, s1, acc), _, kw = pass_inputs(SCENE, cfg.width, cfg.height, "pt", "mwc",
                                                      "cuda", seed=cfg.seed)
         out["k1_ms"], _ = median_ms(lambda: pt_multi_pass(tab, cam, 0, s0, s1, acc,
                                                           num_samples=cfg.spp, **kw), reps=reps)
-        out["recompute_ms"], _ = host_ms(lambda: _render_plain_diff(s, c, cfg), reps=reps)
-        out["vjp_ms"] = step_ms - fwd_ms - out["recompute_ms"]
+        with torch.no_grad():
+            img = forward()
+            cot = 2.0 * (img - target) / img.numel()
+        basis = plain_basis(c, cfg)
+        out["k1b_ms"], out["k1b_reps_ms"] = median_ms(
+            lambda: pt_backward_cuda(scene, basis, cfg, cot), reps=max(reps, 5))
+        out["host_rest_ms"] = step_ms - fwd_ms - out["k1b_ms"]
+        plain_step = grad_step_fn(scene, camera, cfg, target, kernel=False)[0]
+        torch.cuda.reset_peak_memory_stats()
+        out["plain_route_step_ms"], out["plain_route_step_reps_ms"] = host_ms(plain_step,
+                                                                             reps=reps)
+        out["plain_route_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
         split = (f"forward (K1 and its host setup) {fwd_ms:.3f} ms, K1 alone "
-                 f"{out['k1_ms']:.4f} ms; recompute {out['recompute_ms']:.3f}; "
-                 f"VJP {out['vjp_ms']:.3f}")
+                 f"{out['k1_ms']:.4f} ms; K1b {out['k1b_ms']:.4f} ms (reps "
+                 f"{['%.4f' % t for t in out['k1b_reps_ms']]}); the rest on the host "
+                 f"{out['host_rest_ms']:.3f}; the plain route's step "
+                 f"{out['plain_route_step_ms']:.3f} ms, peak memory "
+                 f"{out['plain_route_peak_mem_bytes']} B")
     else:
         out["backward_ms"] = step_ms - fwd_ms
         split = (f"forward (plain, relaxed, checkpointed) {fwd_ms:.3f} ms; backward (recompute "
@@ -1113,9 +1244,112 @@ def grad_timing(scene, camera, cfg, target, label, profiled):
     return out
 
 
+def k1b_work(scene, camera, cfg):
+    """What K1b's replay and reverse sweep must do on ``cfg``'s lanes,
+    counted by the plain version of K1 over the same lanes and seeds (a
+    ``radiance`` hook): rays, nearest sweeps, recorded bounces (sweeps that
+    hit), shadow rays (light samples on the right half with wi > 0) and
+    those that passed."""
+    import torch
+
+    from se195_raytracer_tpu_torch.kernels import pt_kernel as ptk
+    from se195_raytracer_tpu_torch.kernels.seed_kernel import seed_lanes
+    from se195_raytracer_tpu_torch.ops.intersect import intersect_any, intersect_nearest
+
+    n = cfg.width * cfg.height
+    work = dict(rays=n * cfg.spp, sweeps=0, bounces=0, shadow_rays=0, lit=0)
+
+    def hook(o, d, mask, max_t):
+        o, d = o[mask], d[mask]
+        if max_t is None:
+            work["sweeps"] += int(mask.sum())
+            work["bounces"] += int(intersect_nearest(scene, o, d)[2].sum())
+        else:
+            work["shadow_rays"] += int(mask.sum())
+            work["lit"] += int((~intersect_any(scene, o, d, max_t[mask])).sum())
+
+    s0, s1 = seed_lanes(cfg.rng, cfg.seed, n, n, device="cuda")
+    acc = torch.zeros((3, n), dtype=torch.float32, device="cuda")
+    with torch.no_grad():
+        ptk.pt_pass_reference(
+            ptk.pack_scene(scene), ptk.pack_camera(ptk.update_camera(camera, cfg.width,
+                                                                     cfg.height)),
+            0, s0, s1, acc, num_samples=cfg.spp, width=cfg.width, height=cfg.height,
+            max_depth=cfg.max_depth, direct_only=cfg.integrator == "dl",
+            light_indices=scene.light_indices, rng=cfg.rng, on_sweep=hook)
+    return work
+
+
+def k1b_entry(scene, camera, fwd, timing):
+    """The kernels line's K1b entry: Cornell 512x512 spp 2, the main path's
+    shape. ``ms`` is K1b alone on the hard step's cotangent (G6), the plain
+    version's time is ``pt_backward_reference`` on the same inputs, and
+    the bound counts this run's work (``k1b_work``): the replay's ops at
+    the FP32 rate without FMAs, the reverse sweep's at the FMA rate."""
+    import numpy as np
+    import torch
+
+    from se195_raytracer_tpu_torch.core.config import RenderConfig
+    from se195_raytracer_tpu_torch.kernels.pt_backward_kernel import pt_backward_reference
+
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=GRAD_SPPS[0], seed=SEED)
+    hard = timing[f"spp{GRAD_SPPS[0]} hard"]
+    cot = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (HEIGHT, WIDTH, 3)).astype(np.float32)).cuda()
+    basis = plain_basis(camera, cfg)
+    plain_ms, plain_all = host_ms(lambda: pt_backward_reference(scene, basis, cfg, cot), reps=3)
+    work = k1b_work(scene, camera, cfg)
+    n = scene.num_spheres
+    replay = (OPS_CAMERA * work["rays"] + work["sweeps"] * (OPS_SPHERE_NEAREST * n + OPS_SHADE)
+              + work["shadow_rays"] * OPS_SHADOW_SETUP + work["lit"] * OPS_SPHERE_SHADOW * n
+              + (work["shadow_rays"] - work["lit"]) * OPS_SPHERE_SHADOW)
+    adjoint = (work["bounces"] * OPS_ADJ_BOUNCE + work["lit"] * OPS_ADJ_LIGHT
+               + work["rays"] * OPS_ADJ_CAMERA)
+    ops = replay + adjoint
+    nbytes = K1B_BYTES_PER_LANE * WIDTH * HEIGHT + 4 * (10 * n + 12) + 4 * 12 * n
+    ops_ms = (replay / PEAK_FP32_OPS_NO_FMA + adjoint / PEAK_FP32_FLOPS) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    k1b_ms = hard["k1b_ms"]
+    print(f"  K1b at {WIDTH}x{HEIGHT} spp {cfg.spp}: {k1b_ms:.4f} ms; plain version "
+          f"(pt_backward_reference) {plain_ms:.3f} ms (reps {['%.3f' % t for t in plain_all]}); "
+          f"work {work}; {ops:.6g} FP32 ops ({replay:.6g} replay, {adjoint:.6g} adjoint) -> "
+          f"{ops_ms:.5f} ms (the replay at 33.5 T op/s, no FMA; the adjoint at 67 TFLOP/s); "
+          f"{nbytes} B -> {bytes_ms:.5f} ms; bound {bound_ms:.5f} ms by {bound_by}, "
+          f"share {bound_ms / k1b_ms:.2%}")
+    return {
+        "name": "K1b pt_backward_cuda",
+        "route": "cuda",
+        "designed_in": designed_in("K1b"),
+        "source": "se195_raytracer_tpu_torch/kernels/csrc/pt_backward_kernel.cu",
+        "replaces": ("se195_raytracer_tpu/driver/optimize.py:86-126 (jax.vjp of _render_jnp_diff, "
+                     "the backward of the pallas_call at se195_raytracer_tpu/kernels/"
+                     "pt_kernel.py:736; no Pallas backward)"),
+        "launches": fwd[f"spp{GRAD_SPPS[0]}"]["launches_in_backward"]["K1b"],
+        "launches_per_differentiable_step": {
+            k: v["launches_in_backward"]["K1b"] for k, v in fwd.items() if k.startswith("spp")},
+        "max_abs_err": max(v["k1b_grad_max_abs_diff"] for k, v in fwd.items()
+                           if k.startswith("spp")),
+        "max_rel_err": max(v["k1b_grad_max_rel_diff"] for k, v in fwd.items()
+                           if k.startswith("spp")),
+        "ms": k1b_ms,
+        "ms_spp8": timing[f"spp{GRAD_SPPS[-1]} hard"]["k1b_ms"],
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "bound_rate": ("replay 33.5e12 FP32 op/s (no FMA: it rounds as the plain path), "
+                       "reverse sweep 67e12 FP32 op/s (FMA)"),
+        "bound_ops": {"replay": replay, "adjoint": adjoint},
+        "work": work,
+        "library_ms": None,
+    }
+
+
 def grad_section(card):
     """The grad phase: the differentiable path on the card. Returns the
     {"grad": ...} record and the launches per differentiable forward."""
+    import numpy as np
     import torch
 
     from se195_raytracer_tpu_torch.core.config import RenderConfig
@@ -1141,7 +1375,7 @@ def grad_section(card):
     calls, undo = count_plain_radiance()
     try:
         print(f"{since()} [G1] render_differentiable: {SCENE} {WIDTH}x{HEIGHT}, forward on K1, backward "
-              "the plain path's autograd")
+              "on K1b")
         fwd = {}
         for spp in GRAD_SPPS:
             cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=spp, seed=SEED)
@@ -1169,18 +1403,19 @@ def grad_section(card):
             ga = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
             torch.cuda.synchronize()
             bwd_launches, bwd_calls = read_counters(), calls["n"]
-            check(bwd_launches["Seed"] == 1
-                  and not any(v for k, v in bwd_launches.items() if k != "Seed")
-                  and bwd_calls == spp,
-                  f"spp {spp}: the backward must seed its recompute once in the seed kernel, "
-                  f"launch no other kernel and run the plain path {spp} times, got "
-                  f"{bwd_launches}, {bwd_calls}")
+            print(f"  spp {spp} backward: launches {bwd_launches}, plain radiance calls {bwd_calls}")
+            check(bwd_launches["Seed"] == bwd_launches["K1b"] == 1
+                  and not any(v for k, v in bwd_launches.items() if k not in ("Seed", "K1b"))
+                  and bwd_calls == 0,
+                  f"spp {spp}: the backward must be one seeding and one K1b launch and run no "
+                  f"plain radiance, got {bwd_launches}, {bwd_calls}")
             leaves_b, scene_b, camera_b = grad_leaves(scene0, cam0)
             plain = _render_plain_diff(scene_b, camera_b, cfg)
             gb = dict(zip(leaves_b, torch.autograd.grad(plain, list(leaves_b.values()),
                                                         cot["g"])))
-            bitwise, rel = compare_grads(ga, gb, f"spp {spp} Function against the plain VJP "
-                                                 "of the same cotangent")
+            rel, abs_err = compare_k1b(ga, gb, f"spp {spp} K1b route against the plain VJP of "
+                                                "the same cotangent")
+            primal_ok, k1b_repeat = k1b_primal(scene0, cam0, cfg, cot["g"], f"spp {spp}")
             repeat = route = None
             if spp == GRAD_SPPS[0]:
                 # Run to run on the card, and the whole plain route's L2
@@ -1200,9 +1435,61 @@ def grad_section(card):
                 "k1_launches_per_forward": launches["K1"], "plain_radiance_in_forward": plain_calls,
                 "plain_radiance_in_backward": bwd_calls, "launches_in_backward": bwd_launches,
                 "forward_max_abs_err": err, "forward_mismatch": mismatch,
-                "grad_bitwise": bitwise, "grad_max_rel_diff": rel, "plain_vjp_repeat_bitwise":
-                repeat, "l2_route_max_rel_diff": route,
+                "k1b_grad_max_rel_diff": rel, "k1b_grad_max_abs_diff": abs_err,
+                "k1b_primal_bitwise": primal_ok, "k1b_repeat_bitwise": k1b_repeat,
+                "plain_vjp_repeat_bitwise": repeat, "l2_route_max_rel_diff": route,
                 "grad_max_abs": {k: v.abs().max().item() for k, v in ga.items()}}
+        print(f"{since()} [G1b] K1b's replayed primal and gradient against the plain path, "
+              f"{SCENE} {WIDTH}x{HEIGHT} spp 2: DL, and the counter RNG")
+        cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=2, seed=SEED)
+        cot = torch.from_numpy(np.random.default_rng(7).standard_normal(
+            (HEIGHT, WIDTH, 3)).astype(np.float32)).cuda()
+        variants = {}
+        for integ, rng in (("dl", "mwc"), ("pt", "counter"), ("dl", "counter")):
+            c = dataclasses.replace(cfg, integrator=integ, rng=rng)
+            variants[f"{integ} {rng}"] = k1b_against_plain(scene0, cam0, c, cot,
+                                                           f"{integ} {rng} spp 2")
+        fwd["k1b_variants"] = variants
+        print(f"{since()} [G1c] the soft route keeps the plain backward: spp 2, soft {GRAD_SOFT}")
+        cfg_s = RenderConfig(width=WIDTH, height=HEIGHT, spp=2, seed=SEED, soft_edges=GRAD_SOFT)
+        leaves, scene, camera = grad_leaves(scene0, cam0)
+        zero_counters()
+        calls["n"] = 0
+        img = render_differentiable(scene, camera, cfg_s)
+        ga = dict(zip(leaves, torch.autograd.grad(torch.sum(img * cot), list(leaves.values()))))
+        torch.cuda.synchronize()
+        soft_launches, soft_calls = read_counters(), calls["n"]
+        check(soft_launches["K1b"] == 0 and soft_calls >= cfg_s.spp,
+              f"soft: K1b {soft_launches['K1b']} launches, {soft_calls} plain radiance calls")
+        leaves_b, scene_b, camera_b = grad_leaves(scene0, cam0)
+        gb = dict(zip(leaves_b, torch.autograd.grad(_render_plain_diff(scene_b, camera_b, cfg_s),
+                                                    list(leaves_b.values()), cot)))
+        bitwise, rel = compare_grads(ga, gb, "soft route against the plain VJP")
+        fwd["soft_route"] = {"plain_radiance_calls": soft_calls, "grad_bitwise": bitwise,
+                             "grad_max_rel_diff": rel}
+        print(f"{since()} [G1d] paths deeper than K1b's record keep the plain backward: "
+              f"max_depth {GRAD_DEEP[0]}, {GRAD_DEEP[1]}x{GRAD_DEEP[1]} spp 1")
+        cfg_d = RenderConfig(width=GRAD_DEEP[1], height=GRAD_DEEP[1], spp=1, seed=SEED,
+                             max_depth=GRAD_DEEP[0])
+        cot_d = cot[:GRAD_DEEP[1], :GRAD_DEEP[1]].contiguous()
+        leaves, scene, camera = grad_leaves(scene0, cam0)
+        img = render_differentiable(scene, camera, cfg_d)
+        zero_counters()
+        calls["n"] = 0
+        ga = dict(zip(leaves, torch.autograd.grad(torch.sum(img * cot_d),
+                                                  list(leaves.values()))))
+        torch.cuda.synchronize()
+        deep_launches, deep_calls = read_counters(), calls["n"]
+        check(deep_launches["K1b"] == 0 and deep_calls == cfg_d.spp,
+              f"max_depth {GRAD_DEEP[0]}: K1b {deep_launches['K1b']} launches, {deep_calls} "
+              "plain radiance calls in the backward")
+        leaves_b, scene_b, camera_b = grad_leaves(scene0, cam0)
+        gb = dict(zip(leaves_b, torch.autograd.grad(_render_plain_diff(scene_b, camera_b, cfg_d),
+                                                    list(leaves_b.values()), cot_d)))
+        bitwise, rel = compare_grads(ga, gb, f"max_depth {GRAD_DEEP[0]} route against the "
+                                             "plain VJP")
+        fwd["deep_route"] = {"max_depth": GRAD_DEEP[0], "plain_radiance_calls": deep_calls,
+                             "grad_bitwise": bitwise, "grad_max_rel_diff": rel}
         out["forward_backward"] = fwd
 
         print(f"{since()} [G2] counter RNG: the kernel forward and the plain recompute draw one stream")
@@ -1227,20 +1514,37 @@ def grad_section(card):
         check(launches["K2"] == launches["Seed"] == 1
               and not any(v for k, v in launches.items() if k not in ("K2", "Seed"))
               and plain_calls == 0, f"complex forward: {launches}, plain {plain_calls}")
+        cot = {}
+        img.register_hook(lambda g_: cot.setdefault("g", g_))
         t = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        calls["n"] = 0
         g = torch.autograd.grad(torch.mean(img ** 2), list(leaves.values()))
         torch.cuda.synchronize()
         k2_bwd_ms = (time.perf_counter() - t) * 1e3
         k2_peak = torch.cuda.max_memory_allocated()
+        bwd_launches, bwd_calls = read_counters(), calls["n"]
         finite = all(bool(torch.isfinite(x).all()) for x in g)
         nonzero = all(x.abs().max().item() > 0 for x in g)
         print(f"  forward launches {launches}, plain radiance calls {plain_calls}; backward "
-              f"{k2_bwd_ms:.1f} ms, peak memory {k2_peak} B; centre and colour gradients finite "
-              f"{finite}, nonzero {nonzero}")
+              f"launches {bwd_launches}, plain radiance calls {bwd_calls}, {k2_bwd_ms:.1f} ms, "
+              f"peak memory {k2_peak} B; centre and colour gradients finite {finite}, nonzero "
+              f"{nonzero}")
         check(finite and nonzero, "complex gradients not finite or zero")
+        check(bwd_launches["K1b"] == 0 and bwd_calls == spp2,
+              f"complex backward: the plain recompute (K1b has no blocked sweep), got "
+              f"{bwd_launches}, {bwd_calls} plain radiance calls")
+        leaves_b, scene_b, camera_b = grad_leaves(cspec.to_scene(), cspec.to_camera(),
+                                                  ("center", "color"))
+        gb = torch.autograd.grad(_render_plain_diff(scene_b, camera_b, cfg2),
+                                 list(leaves_b.values()), cot["g"])
+        k2_bitwise, k2_rel = compare_grads(dict(zip(leaves, g)), dict(zip(leaves_b, gb)),
+                                           "complex K2 route against the plain VJP")
         out["k2"] = {"k2_launches_per_forward": launches["K2"], "k1_launches": launches["K1"],
-                     "backward_ms": k2_bwd_ms, "peak_mem_bytes": k2_peak}
+                     "backward_ms": k2_bwd_ms, "peak_mem_bytes": k2_peak,
+                     "plain_radiance_in_backward": bwd_calls, "grad_bitwise": k2_bitwise,
+                     "grad_max_rel_diff": k2_rel}
     finally:
         undo()
 
@@ -1267,12 +1571,17 @@ def grad_section(card):
     print(f"{since()} [G5] inverse rendering, {GRAD_STEPS} steps each: {SCENE} {WIDTH}x{HEIGHT} spp 2, "
           "light moved (8, -5, 0), left wall tinted; center and color train")
     inverse = {}
-    for mode in ("hard", "soft"):
+    # The hard run twice: K1's forward and K1b's backward, then the plain
+    # route (use_kernel=False: the plain path both ways) on the same target,
+    # its trajectory printed beside K1b's.
+    for mode in ("hard", "hard plain route", "soft"):
         cfg_m = RenderConfig(width=WIDTH, height=HEIGHT, spp=2, seed=SEED,
-                             soft_edges=0.0 if mode == "hard" else GRAD_SOFT)
-        with torch.no_grad():
-            target = render_differentiable(scene0, cam0, cfg_m)
-        mult = GRAD_GEOM_MULT[mode]
+                             soft_edges=GRAD_SOFT if mode == "soft" else 0.0,
+                             use_kernel=mode != "hard plain route")
+        if mode != "hard plain route":
+            with torch.no_grad():
+                target = render_differentiable(scene0, cam0, cfg_m)
+        mult = GRAD_GEOM_MULT[mode.split()[0]]
         step = make_inverse_step(
             target, cfg_m, lambda tr: G.GroupAdam(
                 {"geom": ([tr["center"]], GRAD_LR * mult), "mat": ([tr["color"]], GRAD_LR)},
@@ -1296,6 +1605,9 @@ def grad_section(card):
                                                   "the first")
         inverse[mode] = {"losses": losses, "step_ms": secs, "median_step_ms": med,
                          "light_center_err": err_c}
+    print("  hard, K1b route against the plain route, loss by step: " + "; ".join(
+        f"{a:.6g} / {b:.6g}" for a, b in zip(inverse["hard"]["losses"],
+                                             inverse["hard plain route"]["losses"])))
     out["inverse"] = inverse
 
     print(f"{since()} [G6] forward+backward per step, {SCENE} {WIDTH}x{HEIGHT} ({card})")
@@ -1329,6 +1641,7 @@ def grad_section(card):
           f"off {memory['remat off']['peak_mem_bytes']} B ({memory['remat off']['step_ms']:.3f} ms)")
     out["timing"] = timing
     out["remat_memory"] = memory
+    out["k1b_kernel"] = k1b_entry(scene0, cam0, fwd, timing)
 
     w5 = W5_GRAD
     print(f"{since()} [G7] whitted5 soft: room5 {w5['width']}x{w5['height']} spp {w5['spp']}, soft "
@@ -2527,10 +2840,12 @@ def sharded_section(tmp):
         print(f"  {k}: max |diff| {(a - b).abs().max().item():.4g}, max rel {rel:.4g}, "
               f"|g| max {b.abs().max().item():.4g}, within tolerance {ok}")
         check(ok, f"sharded gradient of {k} differs from the single-device one")
-    check(glaunch["K1"] == SHARDS, f"sharded gradient launches {glaunch}")
+    check(glaunch["K1"] == glaunch["K1b"] == SHARDS, f"sharded gradient launches {glaunch} "
+          f"(one K1 forward and one K1b backward per shard)")
     print(f"  loss {loss8.item():.9g} vs {loss1.item():.9g}; {glaunch['K1']} K1 launches; "
           f"{grad_s:.3f} s")
-    res["gradients"] = {"max_abs_diff": worst, "k1_launches": glaunch["K1"], "s": grad_s}
+    res["gradients"] = {"max_abs_diff": worst, "k1_launches": glaunch["K1"],
+                        "k1b_launches": glaunch["K1b"], "s": grad_s}
 
     print("[S4] capacity past 48 KB of shared memory")
     spec5 = complex_scene(max_depth=5.0)
@@ -2876,7 +3191,10 @@ def main(argv=None) -> int:
         print("[2] K1 against pt_pass_reference on the card")
         compare_pass(SCENE, WIDTH, HEIGHT, "pt", "mwc", "cuda")
         t = time.perf_counter()
-        print(json.dumps({"grad": grad_section(card)}))
+        grad = grad_section(card)
+        k1b = grad.pop("k1b_kernel")
+        print(json.dumps({"grad": grad}))
+        print(json.dumps({"kernels": [k1b]}))
         print(f"  (grad phase {time.perf_counter() - t:.1f} s)")
         return 0
     if args.only_sharded:
@@ -2927,11 +3245,16 @@ def main(argv=None) -> int:
         if kernel == "K5":
             entry["sharded_launches_are"] = "K4 launches on a textured scene (K5 runs inside)"
     print(f"  (sharded phase {time.perf_counter() - t:.1f} s)")
-    # The grad phase runs last: its profiler sessions hold ~25k kernels
-    # each, and the sessions of the earlier phases, made after them, came
-    # back without some of their events.
+    # The grad phase runs last: the relaxed step's profiler session still
+    # holds ~25k kernels (its backward is the plain path's autograd; the hard
+    # step's is K1b's one launch now), and the sessions of the earlier
+    # phases, made after such a session, came back without some of their
+    # events.
     t = time.perf_counter()
     grad = grad_section(card)
+    k1b = grad.pop("k1b_kernel")
+    k1b["launches_per_sharded_gradient"] = sharded["gradients"]["k1b_launches"]
+    kernels.append(k1b)
     kernels[0]["launches_per_differentiable_forward"] = grad["forward_backward"]["spp2"][
         "k1_launches_per_forward"]
     kernels[1]["launches_per_differentiable_forward"] = grad["k2"]["k2_launches_per_forward"]

@@ -10,9 +10,9 @@ the reference's interactive keystroke edit loop, SURVEY.md §3.5), through
         [--kernel/--no-kernel] [--soft W] [--device cuda|cpu]
 
 ``--kernel`` (the JAX example's ``--pallas``) runs the forward in the
-hand-written kernel (K1) and the backward as the VJP of the plain path
-recomputed from the same seeds; by default it is on when the device is a
-GPU. The default device is the CUDA device; ``--device cpu`` runs on the
+hand-written kernel (K1) and, on a GPU, the backward in K1b (on the CPU the
+VJP of the plain path recomputed from the same seeds); by default it is on
+when the device is a GPU. The default device is the CUDA device; ``--device cpu`` runs on the
 CPU. Prints the loss curve and the final parameter errors; writes
 before/after/target images to ``--outdir``.
 """

@@ -14,10 +14,16 @@ exactly. ``RenderConfig.soft_edges > 0`` relaxes the two step functions
 (models/smallpt.py) so that silhouettes carry gradients too.
 
 With ``config.use_kernel`` and the hard estimator, the forward runs in the
-hand-written kernel (K1, or K2 above 96 spheres) and the backward is the
-autograd of the plain path recomputed from the same seeds, as the JAX
-package pairs its Pallas forward with the VJP of its jnp path. No kernel
-has a backward of its own.
+hand-written kernel (K1, or K2 above 96 spheres). The JAX package pairs its
+Pallas forward with the VJP of its jnp path, one fused XLA program; here the
+backward of a scene of at most 96 spheres on a CUDA device is K1b
+(``kernels/pt_backward_kernel.pt_backward_cuda``), which replays the plain
+path from the same seeds and sweeps its bounces in reverse, and the camera's
+leaves get their gradient from the basis's through ``update_camera``'s
+autograd. Above 96 spheres (K2's scenes: K1b has no blocked sweep), above
+K1b's 16 recorded bounces (``max_depth > 16``) and on the CPU the backward
+is the autograd of the plain path recomputed from the same seeds. The relaxed estimator (``soft_edges > 0``) runs the plain path
+both ways.
 """
 
 from __future__ import annotations
@@ -28,7 +34,13 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from se195_raytracer_tpu_torch.core.config import RenderConfig
-from se195_raytracer_tpu_torch.core.types import Camera, Scene, resolve_device, update_camera
+from se195_raytracer_tpu_torch.core.types import (
+    Camera,
+    CameraBasis,
+    Scene,
+    resolve_device,
+    update_camera,
+)
 from se195_raytracer_tpu_torch.driver.render import _sample_once, pixel_coords
 from se195_raytracer_tpu_torch.kernels.seed_kernel import seed_lanes
 
@@ -55,7 +67,8 @@ def render_differentiable(
 
     With ``config.use_kernel`` and ``soft_edges == 0`` the forward runs in
     the kernel (``kernels/pt_kernel.render_cuda``: K1, or K2 above 96
-    spheres; on CPU tensors its plain version) and the backward recomputes
+    spheres; on CPU tensors its plain version) and the backward in K1b on a
+    CUDA device with at most 96 spheres and 16 bounces, else it recomputes
     ``_render_plain_diff`` from the same seeds and takes its VJP
     (``_KernelForward``). Otherwise both directions run
     ``_render_plain_diff``. ``soft_edges > 0`` always takes the plain path:
@@ -99,8 +112,22 @@ def _render_plain_diff(
     forward-mode JVP with ``remat=False``. ``pixels=(lo, hi)`` renders only
     the rows lo..hi-1, from the seeds the whole frame gives them, and
     returns [hi - lo, 3]."""
+    return _render_plain_basis(scene, update_camera(camera, config.width, config.height), config,
+                               seed, remat, pixels)
+
+
+def _render_plain_basis(
+    scene: Scene,
+    basis: CameraBasis,
+    config: RenderConfig,
+    seed: Optional[int] = None,
+    remat: bool = True,
+    pixels: Optional[Tuple[int, int]] = None,
+) -> torch.Tensor:
+    """``_render_plain_diff`` from the camera basis on (``update_camera``'s
+    output): what K1b differentiates, and its plain version differentiates
+    (``kernels/pt_backward_kernel.pt_backward_reference``)."""
     dev = scene.center.device
-    basis = update_camera(camera, config.width, config.height)
     xs, ys = pixel_coords(config.width, config.height, device=dev)
     n = config.width * config.height
     lo, hi = (0, n) if pixels is None else pixels
@@ -116,11 +143,22 @@ def _render_plain_diff(
 
 
 class _KernelForward(torch.autograd.Function):
-    """Forward: the kernel render (K1, or K2 above 96 spheres). Backward:
-    under ``torch.enable_grad()``, ``_render_plain_diff`` re-run on detached
-    copies of the leaves, from the same seeds, and
-    ``torch.autograd.grad(img, leaves, grad_out)`` (the twin of
-    ``_render_pallas_diff_bwd``).
+    """Forward: the kernel render (K1, or K2 above 96 spheres). Backward
+    (the twin of ``_render_pallas_diff_bwd``), a static route by device and
+    sphere count:
+
+    * CUDA tensors, at most ``UNROLL_MAX_SPHERES`` spheres and
+      ``max_depth`` at most K1b's record (``MAX_DEPTH`` bounces): K1b
+      (``pt_backward_cuda``: one seeding and one launch, no plain
+      ``radiance``) gives the scene's and the camera basis's gradients, and
+      ``torch.autograd.grad`` of ``update_camera`` carries the basis's to
+      the camera's ``orig`` and ``target``. A K1b build or launch that
+      fails raises;
+    * otherwise (the CPU, K2's scenes: K1b has no blocked sweep, and deeper
+      paths than its record holds):
+      under ``torch.enable_grad()``, ``_render_plain_diff`` re-run on
+      detached copies of the leaves, from the same seeds, and
+      ``torch.autograd.grad(img, leaves, grad_out)``.
 
     The scene's and the camera's tensors are separate arguments: autograd
     does not look inside a dataclass. ``refl``, ``light_indices``, the
@@ -142,7 +180,14 @@ class _KernelForward(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
+        from se195_raytracer_tpu_torch.kernels.pt_backward_kernel import MAX_DEPTH
+        from se195_raytracer_tpu_torch.kernels.pt_kernel import UNROLL_MAX_SPHERES
+
         needs = ctx.needs_input_grad[:len(LEAVES)]
+        center = ctx.saved_tensors[0]
+        if (center.device.type == "cuda" and center.shape[0] <= UNROLL_MAX_SPHERES
+                and ctx.config.max_depth <= MAX_DEPTH):
+            return (*_k1b_backward(ctx, grad_out, needs), None, None, None, None)
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, needs)]
             scene = Scene(*leaves[:4], ctx.refl, ctx.light_indices)
@@ -151,6 +196,36 @@ class _KernelForward(torch.autograd.Function):
             grads = iter(torch.autograd.grad(img, wanted, grad_out, allow_unused=True))
         out = [next(grads) if need else None for need in needs]
         return (*out, None, None, None, None)
+
+
+def _k1b_backward(ctx, grad_out, needs):
+    """The leaves' gradients by K1b: the scene's from its flat gradient, the
+    camera's by the autograd of ``update_camera`` (about 20 ops on [3]
+    vectors) from the basis's."""
+    from se195_raytracer_tpu_torch.kernels.pt_backward_kernel import (
+        BASIS_FIELDS,
+        pt_backward_cuda,
+        unpack_grad,
+    )
+
+    center, radius, emission, color, orig, target = ctx.saved_tensors
+    scene = Scene(center, radius, emission, color, ctx.refl, ctx.light_indices)
+    cfg = ctx.config
+    with torch.enable_grad():
+        cam = [t.detach().requires_grad_(need) for t, need in zip((orig, target), needs[4:])]
+        basis = update_camera(Camera(*cam), cfg.width, cfg.height)
+    detached = CameraBasis(*(getattr(basis, k).detach() for k in BASIS_FIELDS))
+    g = unpack_grad(pt_backward_cuda(scene, detached, cfg, grad_out, ctx.pixels),
+                    center.shape[0])
+    out = [g[k] if need else None for k, need in zip(SCENE_LEAVES, needs)]
+    wanted = [t for t in cam if t.requires_grad]
+    if wanted:
+        with torch.enable_grad():
+            outs = [(getattr(basis, k), g[k]) for k in BASIS_FIELDS
+                    if getattr(basis, k).requires_grad]
+            cam_grads = iter(torch.autograd.grad([o for o, _ in outs], wanted,
+                                                 [v for _, v in outs], allow_unused=True))
+    return out + [next(cam_grads) if t.requires_grad else None for t in cam]
 
 
 def l2_image_loss(scene: Scene, camera: Camera, target: torch.Tensor, config: RenderConfig,

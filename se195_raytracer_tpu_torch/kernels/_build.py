@@ -32,10 +32,11 @@ NVCC_FLAGS = (
 )
 # Per-source flags. K3 and K4 round every a * b + c twice, as their plain
 # versions' separate tensor ops do, so that the two agree to the ulp on the
-# geometry.
+# geometry; K1b so that its replay is the plain path's bit for bit.
 EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
     "whitted_kernel": ("-fmad=false",),
     "whitted5_kernel": ("-fmad=false",),
+    "pt_backward_kernel": ("-fmad=false",),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -36,8 +36,8 @@ def refuse_grad(entry: str, *inputs) -> None:
     for t in _tensors(inputs):
         if t.requires_grad and t.is_floating_point():
             raise RuntimeError(
-                f"{entry}: an input requires grad, and a hand-written kernel has no "
-                "backward. Differentiate with driver.optimize.render_differentiable "
-                "(kernel forward, plain-path backward), or pass use_kernel=False to "
+                f"{entry}: an input requires grad, and a kernel's output carries no "
+                "autograd history. Differentiate with driver.optimize.render_differentiable "
+                "(kernel forward and backward), or pass use_kernel=False to "
                 "run the plain PyTorch path, or call under torch.no_grad()."
             )

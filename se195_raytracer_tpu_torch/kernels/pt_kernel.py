@@ -19,8 +19,10 @@ order and pad-lane seeding, so a state can be carried across between the
 two packages (``convert.py``).
 
 Every wrapper refuses inputs that require grad (``kernels/_guard.py``):
-the kernels have no backward; ``driver/optimize.render_differentiable``
-pairs K1/K2's forward with the plain path's autograd.
+a kernel's output has no autograd history;
+``driver/optimize.render_differentiable`` pairs K1/K2's forward with a
+backward of its own (K1b, ``kernels/pt_backward_kernel.py``, for K1's
+scenes on the card; the plain path's autograd otherwise).
 
 Scene table layout (``pack_scene``): rows are
 [cx, cy, cz, rad, ex, ey, ez, colr, colg, colb, refl, emissive], one column
@@ -600,18 +602,24 @@ def _check_launch(s0, rng):
 _LIGHTS: Dict[Tuple, torch.Tensor] = {}
 
 
-def _lights_and_outputs(light_indices, s0, s1, acc):
-    """K1's int32 light list on the state's device, copied there once per
-    (light indices, device) and kept (the copy would stall every launch;
-    the list is the tuple's value, so an edited scene's new tuple gets its
-    own), and fresh outputs."""
-    key = (tuple(light_indices), str(s0.device))
+def light_list(light_indices, device) -> torch.Tensor:
+    """The int32 light list on ``device``, copied there once per (light
+    indices, device) and kept (the copy would stall every launch; the list
+    is the tuple's value, so an edited scene's new tuple gets its own)."""
+    key = (tuple(light_indices), str(device))
     lights = _LIGHTS.get(key)
     if lights is None:
         if len(_LIGHTS) >= 32:
             _LIGHTS.pop(next(iter(_LIGHTS)))
-        lights = _LIGHTS[key] = torch.tensor(key[0], dtype=torch.int32, device=s0.device)
-    return lights, (torch.empty_like(s0), torch.empty_like(s1), torch.empty_like(acc))
+        lights = _LIGHTS[key] = torch.tensor(key[0], dtype=torch.int32, device=device)
+    return lights
+
+
+def _lights_and_outputs(light_indices, s0, s1, acc):
+    """K1's light list on the state's device (``light_list``) and fresh
+    outputs."""
+    return light_list(light_indices, s0.device), (torch.empty_like(s0), torch.empty_like(s1),
+                                                  torch.empty_like(acc))
 
 
 def _frame_args(s0, width, height, max_depth, direct_only, rng):

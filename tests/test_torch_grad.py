@@ -678,24 +678,30 @@ def _card_leaves():
 @pytest.mark.cuda
 @pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA device")
 def test_card_function_grads_equal_plain_vjp():
-    """On the card: the Function's gradients equal the plain path's VJP of
-    the same cotangent (bitwise, or within rtol 1e-5 where the card's
-    scatter-adds reorder), and its forward is one K1 launch."""
+    """On the card: the Function's gradients, K1b's (one launch in the
+    backward, no K1 launch), equal the plain path's VJP of the same
+    cotangent within K1b's bar (``grad_row_error`` within
+    ``GRAD_ROW_REL``: each sphere's row against its own largest gradient;
+    K1b takes a sqrt's derivative in float32 and sums in another order,
+    tests/test_torch_pt_backward.py), and its forward is one K1 launch."""
+    from se195_raytracer_tpu_torch.kernels import pt_backward_kernel as pbk
+
     cfg = RenderConfig(width=64, height=64, spp=2, seed=1)
     leaves, scene, camera = _card_leaves()
-    ptk.pt_multi_pass.launches = 0
+    ptk.pt_multi_pass.launches = pbk.pt_backward_cuda.launches = 0
     img = O.render_differentiable(scene, camera, cfg)
     assert ptk.pt_multi_pass.launches == 1
     cot = {}
     img.register_hook(lambda g: cot.setdefault("g", g))
     ga = torch.autograd.grad(torch.mean(img ** 2), list(leaves.values()))
-    assert ptk.pt_multi_pass.launches == 1
+    assert ptk.pt_multi_pass.launches == 1 and pbk.pt_backward_cuda.launches == 1
     leaves_b, scene_b, camera_b = _card_leaves()
     gb = torch.autograd.grad(O._render_plain_diff(scene_b, camera_b, cfg),
                              list(leaves_b.values()), cot["g"])
-    for a, b in zip(ga, gb):
+    for a in ga:
         assert torch.isfinite(a).all()
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()))
+    err = pbk.grad_row_error(dict(zip(leaves, ga)), dict(zip(leaves, gb)))
+    assert max(err.values()) <= pbk.GRAD_ROW_REL, err
 
 
 @pytest.mark.cuda

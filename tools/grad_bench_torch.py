@@ -3,9 +3,10 @@ tools/grad_bench.py, which stays the JAX package's).
 
 Cornell 512x512 inverse rendering end to end on one GPU through
 ``driver.optimize.render_differentiable`` (forward: the hand-written K1
-kernel; backward: autograd of the plain path recomputed from the same
-seeds), and the gradient metric "pixel-grad max-err vs finite diff"
-(BASELINE.json) at the same size.
+kernel; backward: K1b, the hand-written backward, on a GPU, and on the CPU
+autograd of the plain path recomputed from the same seeds), and the
+gradient metric "pixel-grad max-err vs finite diff" (BASELINE.json) at the
+same size.
 
 The run: the target is the true Cornell scene; the start has its ceiling
 light moved by (8, -5, 0) and its left wall tinted (0.3, 0.6, 0.3); the
@@ -186,7 +187,8 @@ def main(argv=None) -> int:
         "config": {"scene": "cornell", "width": args.size, "height": args.size, "spp": args.spp,
                    "seed": args.seed, "steps": args.steps, "lr": args.lr,
                    "forward": "K1 (render_differentiable, use_kernel)",
-                   "backward": "autograd of the remat plain path", "device": name},
+                   "backward": ("K1b (pt_backward_cuda)" if device.type == "cuda"
+                                else "autograd of the remat plain path"), "device": name},
         "target_render_s": round(t_target, 3),
         "optimizer": {"schedule": f"cosine_decay(alpha={args.sched_alpha}) per group",
                       "base_lr": args.lr, "geom_lr_mult": {"hard": args.geom_mult,
