@@ -93,7 +93,8 @@ G. the differentiable path (driver/optimize.py), Cornell 512x512, PT, mwc,
    ``GRAD_ROW_REL`` of its own scale (``grad_row_error``) of the plain
    path's VJP of the same cotangent; K1b's replayed primal
    bitwise ``_render_plain_diff``'s (PT and DL, mwc and counter, spp 2
-   and 8), K1b run twice bitwise or not (reported); the relaxed
+   and 8), K1b run twice on one cotangent bitwise (checked: no atomics,
+   a fixed order of every sum); the relaxed
    estimator's route, max_depth 20 (past K1b's record) and K2's on
    ``complex`` 128x128 keep the plain backward, equal to the plain VJP
    (rtol 1e-5); the counter RNG's forward
@@ -124,7 +125,11 @@ T. last, K3's debug taps (``whitted_taps_cuda``: tres, attr and shade on
     ``{"mt19937"}``, ``{"texrec"}``), one JSON line per kernel
     (``{"kernels": [...]}``, K1-K5, the seed kernel and K1b, K1 and K2 with their launches
     per differentiable forward, K1b with its launches per differentiable
-    step and per 8-shard gradient, each other with its launches in the
+    step and per 8-shard gradient, its spp-8 time, bound and share, its
+    spp-8 / spp-2 ratio, its registers and stack frame (ptxas's figures,
+    read from the loaded library for each integrator and RNG), its resident
+    warps an SM and ``repeat_bitwise``
+    (checked), each other with its launches in the
     sharded render that runs it, as counted there; K5's are the room5 K4
     launches it ran inside)
     and, last, ``{"ok": true, "device": {...}}``.
@@ -1110,8 +1115,9 @@ def plain_basis(camera, cfg):
 
 def k1b_primal(scene, camera, cfg, cot, tag):
     """K1b's replayed primal against ``_render_plain_diff`` under no_grad,
-    which must be bitwise, and K1b run twice on one cotangent (reported).
-    Returns (primal bitwise, repeat bitwise)."""
+    and K1b run twice on one cotangent: both must be bitwise (the kernel
+    sums in a fixed order, without atomics). Returns (primal bitwise,
+    repeat bitwise)."""
     import torch
 
     from se195_raytracer_tpu_torch.driver.optimize import _render_plain_diff
@@ -1127,6 +1133,7 @@ def k1b_primal(scene, camera, cfg, cot, tag):
     print(f"  {tag}: K1b's replayed primal bitwise the plain primal {same} ({lanes} lanes "
           f"differ); K1b twice on one cotangent bitwise {repeat}")
     check(same, f"{tag}: K1b's replayed primal differs from the plain path's on {lanes} lanes")
+    check(repeat, f"{tag}: K1b run twice on one cotangent is not bitwise")
     return same, repeat
 
 
@@ -1280,12 +1287,32 @@ def k1b_work(scene, camera, cfg):
     return work
 
 
+def k1b_bound(scene, camera, cfg):
+    """K1b's bound on ``cfg``'s lanes from this run's work (``k1b_work``):
+    the replay's ops at the FP32 rate without FMAs, the reverse sweep's at
+    the FMA rate, against the bytes. Returns (bound ms, bound_by, replay
+    ops, adjoint ops, work, bytes)."""
+    work = k1b_work(scene, camera, cfg)
+    n = scene.num_spheres
+    replay = (OPS_CAMERA * work["rays"] + work["sweeps"] * (OPS_SPHERE_NEAREST * n + OPS_SHADE)
+              + work["shadow_rays"] * OPS_SHADOW_SETUP + work["lit"] * OPS_SPHERE_SHADOW * n
+              + (work["shadow_rays"] - work["lit"]) * OPS_SPHERE_SHADOW)
+    adjoint = (work["bounces"] * OPS_ADJ_BOUNCE + work["lit"] * OPS_ADJ_LIGHT
+               + work["rays"] * OPS_ADJ_CAMERA)
+    nbytes = K1B_BYTES_PER_LANE * WIDTH * HEIGHT + 4 * (10 * n + 12) + 4 * 12 * n
+    ops_ms = (replay / PEAK_FP32_OPS_NO_FMA + adjoint / PEAK_FP32_FLOPS) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", replay,
+            adjoint, work, nbytes)
+
+
 def k1b_entry(scene, camera, fwd, timing):
     """The kernels line's K1b entry: Cornell 512x512 spp 2, the main path's
-    shape. ``ms`` is K1b alone on the hard step's cotangent (G6), the plain
-    version's time is ``pt_backward_reference`` on the same inputs, and
-    the bound counts this run's work (``k1b_work``): the replay's ops at
-    the FP32 rate without FMAs, the reverse sweep's at the FMA rate."""
+    shape, and spp 8. ``ms`` is K1b alone on the hard step's cotangent (G6),
+    the plain version's time is ``pt_backward_reference`` on the same
+    inputs, the bounds count each run's work (``k1b_bound``), and each
+    build's registers, stack frame and resident warps are read from the
+    loaded library (``occupancy``)."""
     import numpy as np
     import torch
 
@@ -1298,26 +1325,34 @@ def k1b_entry(scene, camera, fwd, timing):
         (HEIGHT, WIDTH, 3)).astype(np.float32)).cuda()
     basis = plain_basis(camera, cfg)
     plain_ms, plain_all = host_ms(lambda: pt_backward_reference(scene, basis, cfg, cot), reps=3)
-    work = k1b_work(scene, camera, cfg)
-    n = scene.num_spheres
-    replay = (OPS_CAMERA * work["rays"] + work["sweeps"] * (OPS_SPHERE_NEAREST * n + OPS_SHADE)
-              + work["shadow_rays"] * OPS_SHADOW_SETUP + work["lit"] * OPS_SPHERE_SHADOW * n
-              + (work["shadow_rays"] - work["lit"]) * OPS_SPHERE_SHADOW)
-    adjoint = (work["bounces"] * OPS_ADJ_BOUNCE + work["lit"] * OPS_ADJ_LIGHT
-               + work["rays"] * OPS_ADJ_CAMERA)
+    bound_ms, bound_by, replay, adjoint, work, nbytes = k1b_bound(scene, camera, cfg)
     ops = replay + adjoint
-    nbytes = K1B_BYTES_PER_LANE * WIDTH * HEIGHT + 4 * (10 * n + 12) + 4 * 12 * n
     ops_ms = (replay / PEAK_FP32_OPS_NO_FMA + adjoint / PEAK_FP32_FLOPS) * 1e3
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
     k1b_ms = hard["k1b_ms"]
+    cfg8 = dataclasses.replace(cfg, spp=GRAD_SPPS[-1])
+    bound8_ms, _, replay8, adjoint8, work8, _ = k1b_bound(scene, camera, cfg8)
+    ms8 = timing[f"spp{GRAD_SPPS[-1]} hard"]["k1b_ms"]
+    # K1b twice on one cotangent, bitwise in every configuration (each a
+    # check in k1b_primal).
+    repeat = (all(v["k1b_repeat_bitwise"] for k, v in fwd.items() if k.startswith("spp"))
+              and all(v["repeat_bitwise"] for v in fwd["k1b_variants"].values()))
+    check(repeat, "K1b run twice on one cotangent is not bitwise")
+    from se195_raytracer_tpu_torch.kernels.pt_backward_kernel import occupancy
+
+    warps = occupancy(scene, cfg)["resident_warps_per_sm"]
+    ptxas = [{"integrator": integ, "rng": rng,
+              **occupancy(scene, dataclasses.replace(cfg, integrator=integ, rng=rng))}
+             for integ in ("pt", "dl") for rng in ("mwc", "counter")]
     print(f"  K1b at {WIDTH}x{HEIGHT} spp {cfg.spp}: {k1b_ms:.4f} ms; plain version "
           f"(pt_backward_reference) {plain_ms:.3f} ms (reps {['%.3f' % t for t in plain_all]}); "
           f"work {work}; {ops:.6g} FP32 ops ({replay:.6g} replay, {adjoint:.6g} adjoint) -> "
           f"{ops_ms:.5f} ms (the replay at 33.5 T op/s, no FMA; the adjoint at 67 TFLOP/s); "
           f"{nbytes} B -> {bytes_ms:.5f} ms; bound {bound_ms:.5f} ms by {bound_by}, "
           f"share {bound_ms / k1b_ms:.2%}")
+    print(f"  K1b at spp {cfg8.spp}: {ms8:.4f} ms, {ms8 / k1b_ms:.3f}x spp {cfg.spp}'s; work "
+          f"{work8}; bound {bound8_ms:.5f} ms, share {bound8_ms / ms8:.2%}; ptxas {ptxas}; "
+          f"{warps} warps resident an SM")
     return {
         "name": "K1b pt_backward_cuda",
         "route": "cuda",
@@ -1334,7 +1369,9 @@ def k1b_entry(scene, camera, fwd, timing):
         "max_rel_err": max(v["k1b_grad_max_rel_diff"] for k, v in fwd.items()
                            if k.startswith("spp")),
         "ms": k1b_ms,
-        "ms_spp8": timing[f"spp{GRAD_SPPS[-1]} hard"]["k1b_ms"],
+        "ms_spp8": ms8,
+        "spp8_over_spp2": ms8 / k1b_ms,
+        "repeat_bitwise": repeat,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -1342,6 +1379,13 @@ def k1b_entry(scene, camera, fwd, timing):
                        "reverse sweep 67e12 FP32 op/s (FMA)"),
         "bound_ops": {"replay": replay, "adjoint": adjoint},
         "work": work,
+        "share_of_bound": bound_ms / k1b_ms,
+        "bound_ms_spp8": bound8_ms,
+        "share_of_bound_spp8": bound8_ms / ms8,
+        "bound_ops_spp8": {"replay": replay8, "adjoint": adjoint8},
+        "work_spp8": work8,
+        "ptxas": ptxas,
+        "resident_warps_per_sm": warps,
         "library_ms": None,
     }
 

@@ -13,21 +13,32 @@
 // One thread per lane (a pixel sample), and per pass:
 //   1. the replay: the camera ray and up to max_depth bounces, exactly as
 //      models/smallpt.py computes them on the card: every product and sum
-//      rounded on its own (this file is built with -fmad=false), dot products
-//      left to right, IEEE sqrt and division where the plain path takes
-//      them, torch.linalg.cross's a1 * b2 - a2 * b1 as torch's kernel rounds
-//      it (one FMA over the rounded second product), and the running mean's
-//      division by a scalar as torch's card kernel does it, a product with
-//      the float reciprocal. Its primal is the plain path's bit for bit, so
-//      it takes the branch on every lane that the recompute it replaces
-//      took. Each bounce keeps a record: ray, throughput, the RNG state at
-//      its start, the hit, its kind and each light sample's pass/fail;
+//      rounded on its own (the Rn policy's __fmul_rn / __fadd_rn /
+//      __fsub_rn, which the compiler never contracts into FMAs), dot
+//      products left to right, IEEE sqrt and division where the plain path
+//      takes them, torch.linalg.cross's a1 * b2 - a2 * b1 as torch's kernel
+//      rounds it (one FMA over the rounded second product), and the running
+//      mean's division by a scalar as torch's card kernel does it, a product
+//      with the float reciprocal. Its primal is the plain path's bit for bit,
+//      so it takes the branch on every lane that the recompute it replaces
+//      took. Each bounce keeps a record (Rec, 16 words): ray, throughput, hit
+//      distance, the RNG state at its start, a flag word (sphere id, kind,
+//      and whether the ray arrived by a specular bounce) and each light
+//      sample's pass/fail;
 //   2. the reverse sweep: from the last bounce back to the camera, the
 //      adjoints of the throughput, origin and direction are carried back and
 //      each bounce's local values are recomputed from its record (the draws
-//      replayed from its RNG state). Step functions get no gradient, as
-//      under autograd: hit or miss, the nearest hit's choice, occlusion, the
-//      light sample's half and wi > 0, total internal reflection, the
+//      replayed from its RNG state) with the replay's own rounding, so they
+//      are the replay's bit for bit, and so is every branch taken from them
+//      (the orientation sign, the root, det > 0, into, the cosine frame's
+//      axis, the clamps). The adjoint arithmetic itself contracts into FMAs:
+//      only the gradient's accuracy is asked of it. (A recompute free to
+//      contract moved K1b's worst row from 3.7e-5 to 2.0e-4 of its scale at
+//      Cornell 512^2, DL: R usp + C - hp cancels for a sample near the hit
+//      point, where the plain path's rounding sets the answer; it saved no
+//      time.) Step functions get no gradient,
+//      as under autograd: hit or miss, the nearest hit's choice, occlusion,
+//      the light sample's half and wi > 0, total internal reflection, the
 //      roulette pick and the orientation signs. The guards of the plain path
 //      keep their derivatives: a zero one at sqrt(0) (the double where) and
 //      at a clamp's floor, where torch's clamp passes none below it;
@@ -36,31 +47,41 @@
 // A sqrt's derivative is taken in float32 as g / (2 sqrt(x)); the plain
 // path takes it in float64 and rounds (core/types.sqrt_rn).
 //
-// Reduction: each warp adds its lanes' sphere gradients into its own
-// [10 n + 12] table in shared memory with shared-memory atomics, and keeps
-// the camera basis's in registers, summed by a fixed butterfly at the end;
-// the block sums its warps' tables in warp order into its row of a partials
+// What bounds it on this card: FP32 operations. The replay repeats K1's pass
+// (~15 ops a sphere of a nearest sweep, ~12 of a shadow sweep) and must not
+// contract, so it runs at half the FMA rate (33.5 T op/s); the reverse sweep
+// adds ~150 ops a bounce and ~90 a lit light sample, free to run at the FMA
+// rate (67 TFLOP/s). Device memory carries only the lanes' seeds and
+// cotangent. What the design does about it:
+//   - rounding: only the primal is held to the plain path's rounding (Rn);
+//     the file is built without -fmad=false, so the adjoint contracts;
+//   - accumulation: the warp walks its lanes' bounces in lockstep, from its
+//     deepest record down (a lane past its own records adds zeros). At each
+//     step the lanes are grouped by sphere id, each group's 8 row slots are
+//     summed by a fixed reduce-scatter of 9 shuffles (warp_sum8), and one
+//     lane per slot adds its sum into the warp's table in shared memory
+//     with a plain add (warp_add): groups hold distinct ids and slots
+//     distinct entries, so no two writes meet, and a warp whose lanes all
+//     hit one sphere does one round. The light samples' rows have one id
+//     per light, so each is one round. No atomics: the gradient is the
+//     same bit for bit from run to run;
+//   - occupancy: 128-thread blocks, at least 4 an SM (16 warps, at most 128
+//     registers), the record shrunk to the words the reverse sweep cannot
+//     recompute cheaply;
+//   - the scene sits in shared memory as in K1 (a float4 per sphere for the
+//     sweeps), the nearest hit and the shadow tests' outcomes are recorded
+//     rather than swept again.
+// The block sums its warps' tables in warp order into its row of a partials
 // table, and a second kernel sums the rows in a fixed order. Blocks are
 // aligned to absolute pixel ids (block b of a launch over rows lo..hi-1
 // holds pixels (lo & ~127) + 128 b ...), so a shard's blocks hold the same
-// lanes as the whole frame's. Only the order of the shared-memory atomics
-// within one warp instruction is up to the hardware.
-//
-// What bounds it on this card: FP32 work. The replay repeats K1's pass (the
-// nearest-hit sweep of ~15 ops a sphere, a shadow sweep of ~12 a sphere per
-// light) and the reverse sweep adds a few hundred ops per bounce; device
-// memory moves the per-lane record (local memory, 72 bytes per bounce) and
-// the lanes' grad_out and seeds. What the design does about it: the scene
-// sits in shared memory as in K1 (a float4 record per sphere for the
-// sweeps), the nearest hit is kept in the record rather than swept again,
-// the shadow tests' outcomes too, and the reverse sweep recomputes the
-// bounce's local geometry from the record instead of storing it.
+// lanes as the whole frame's.
 //
 // Gradient layout (pt_backward_kernel.py pack_grad): center [n, 3], radius
 // [n], emission [n, 3], color [n, 3], then the basis orig, dir, x, y (12).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-// -Xcompiler -fPIC -fmad=false. Never --use_fast_math.
+// -Xcompiler -fPIC. Never --use_fast_math (it would change the replay).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -69,10 +90,12 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMinBlocks = 4;  // 16 warps an SM: at most 128 registers a thread
 constexpr int kReduceThreads = 256;
 constexpr int kRows = 12;          // cx cy cz rad ex ey ez cr cg cb refl emissive
 constexpr int kMaxDepth = 16;      // MAX_DEPTH: bounces a record holds
 constexpr int kMaxLightWords = 3;  // 96 lights at most: one bit each
+constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr float kEps = 0.01f;      // geomfunc.h:29 EPSILON
 constexpr float kInf = 1e20f;      // geomfunc.h:80
 constexpr float kTwoPi = 6.2831855f;
@@ -82,6 +105,12 @@ constexpr float kLenFloor = 1e-20f;   // the clamp of a light sample's length
 
 enum { kMwc = 0, kCounter = 1 };
 enum Kind : uint32_t { kLight = 0, kDiff = 1, kSpec = 2, kTir = 3, kRefl = 4, kTrans = 5 };
+
+// A record's flag word: the sphere id, the kind, the specular flag of the
+// incoming ray.
+constexpr uint32_t kHidMask = 0x7Fu;   // bits 0-6: the hit sphere (n <= 96)
+constexpr int kKindShift = 8;          // bits 8-10: Kind
+constexpr uint32_t kSpecIn = 1u << 11;    // the ray arrived by a specular bounce
 
 template <int RNG>
 __device__ __forceinline__ float draw(uint32_t& s0, uint32_t& s1) {
@@ -103,26 +132,53 @@ __device__ __forceinline__ float draw(uint32_t& s0, uint32_t& s1) {
   }
 }
 
+// The primal's rounding: each product, sum and difference rounded on its
+// own, as the plain path's separate tensor ops round them.
+struct Rn {
+  static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+  static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+  static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+};
+
 struct V3 {
   float x, y, z;
 };
 __device__ __forceinline__ V3 v3(float x, float y, float z) { return V3{x, y, z}; }
+// The adjoint's arithmetic (free to contract).
 __device__ __forceinline__ V3 operator+(V3 a, V3 b) { return v3(a.x + b.x, a.y + b.y, a.z + b.z); }
 __device__ __forceinline__ V3 operator-(V3 a, V3 b) { return v3(a.x - b.x, a.y - b.y, a.z - b.z); }
 __device__ __forceinline__ V3 operator*(float s, V3 a) { return v3(s * a.x, s * a.y, s * a.z); }
 __device__ __forceinline__ V3 operator*(V3 a, float s) { return v3(a.x * s, a.y * s, a.z * s); }
 __device__ __forceinline__ V3 mul(V3 a, V3 b) { return v3(a.x * b.x, a.y * b.y, a.z * b.z); }
-// core/types.dot3: left to right.
 __device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-// torch.linalg.cross on the card: a1 * b2 - a2 * b1 as one FMA over the
-// rounded second product.
-__device__ __forceinline__ V3 cross_t(V3 a, V3 b) {
-  return v3(__fmaf_rn(a.y, b.z, -(a.z * b.y)), __fmaf_rn(a.z, b.x, -(a.x * b.z)),
-            __fmaf_rn(a.x, b.y, -(a.y * b.x)));
-}
 // The cross product of the adjoint (no primal to match).
 __device__ __forceinline__ V3 cross(V3 a, V3 b) {
   return v3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x);
+}
+
+// The primal's arithmetic, in the replay and in the reverse sweep's
+// recompute alike: Rn's rounding.
+__device__ __forceinline__ V3 vadd(V3 a, V3 b) {
+  return v3(Rn::add(a.x, b.x), Rn::add(a.y, b.y), Rn::add(a.z, b.z));
+}
+__device__ __forceinline__ V3 vsub(V3 a, V3 b) {
+  return v3(Rn::sub(a.x, b.x), Rn::sub(a.y, b.y), Rn::sub(a.z, b.z));
+}
+__device__ __forceinline__ V3 vscale(float s, V3 a) {
+  return v3(Rn::mul(s, a.x), Rn::mul(s, a.y), Rn::mul(s, a.z));
+}
+__device__ __forceinline__ V3 vmul(V3 a, V3 b) {
+  return v3(Rn::mul(a.x, b.x), Rn::mul(a.y, b.y), Rn::mul(a.z, b.z));
+}
+// core/types.dot3: left to right.
+__device__ __forceinline__ float vdot(V3 a, V3 b) {
+  return Rn::add(Rn::add(Rn::mul(a.x, b.x), Rn::mul(a.y, b.y)), Rn::mul(a.z, b.z));
+}
+// torch.linalg.cross on the card: a1 * b2 - a2 * b1 as one FMA over the
+// rounded second product.
+__device__ __forceinline__ V3 cross_t(V3 a, V3 b) {
+  return v3(__fmaf_rn(a.y, b.z, -Rn::mul(a.z, b.y)), __fmaf_rn(a.z, b.x, -Rn::mul(a.x, b.z)),
+            __fmaf_rn(a.x, b.y, -Rn::mul(a.y, b.x)));
 }
 
 struct Scene {
@@ -144,15 +200,28 @@ struct Scene {
   __device__ __forceinline__ bool emissive(int j) const { return sc[11 * n + j] > 0.5f; }
 };
 
+// The sphere quadratic of ops/intersect.sphere_intersect, as the replay
+// rounds it: b = op . d, det = b b - op . op + r r, op = C - o.
+struct Quad {
+  V3 op;
+  float b, det, sq;
+};
+
+__device__ __forceinline__ Quad quad(float4 s, V3 o, V3 d) {
+  Quad q;
+  q.op = v3(Rn::sub(s.x, o.x), Rn::sub(s.y, o.y), Rn::sub(s.z, o.z));
+  q.b = vdot(q.op, d);
+  q.det = Rn::add(Rn::sub(Rn::mul(q.b, q.b), vdot(q.op, q.op)), Rn::mul(s.w, s.w));
+  q.sq = q.det > 0.0f ? sqrtf(q.det) : 0.0f;
+  return q;
+}
+
 // ops/intersect.sphere_intersect for one sphere: t, or 0 on a miss.
 __device__ __forceinline__ float sphere_t(float4 s, V3 o, V3 d) {
-  const V3 op = v3(s.x - o.x, s.y - o.y, s.z - o.z);
-  const float b = dot(op, d);
-  const float det = b * b - dot(op, op) + s.w * s.w;
-  if (!(det >= 0.0f)) return 0.0f;
-  const float sq = det > 0.0f ? sqrtf(det) : 0.0f;
-  const float t1 = b - sq;
-  const float t2 = b + sq;
+  const Quad q = quad(s, o, d);
+  if (!(q.det >= 0.0f)) return 0.0f;
+  const float t1 = Rn::sub(q.b, q.sq);
+  const float t2 = Rn::add(q.b, q.sq);
   return t1 > kEps ? t1 : (t2 > kEps ? t2 : 0.0f);
 }
 
@@ -178,34 +247,33 @@ __device__ __forceinline__ bool any_hit(const Scene& S, V3 o, V3 d, float maxt) 
   return false;
 }
 
-// A bounce's record: its inputs, the RNG state at its start, the hit and
-// what the bounce did.
+// A bounce's record: its inputs, the hit distance, the RNG state at its
+// start, the flag word and which light samples passed (bit k: light k).
 struct Rec {
   V3 o, d, thr;
   float t;
   uint32_t s0, s1;
-  int hid;
-  uint32_t kind, spec;
-  uint32_t ok[kMaxLightWords];  // light k's sample passed (bit k)
+  uint32_t flags;
+  uint32_t ok[kMaxLightWords];
 };
 
 // The hit's local frame (models/smallpt._bounce): hit point, normal before
-// and after normalising, and the oriented normal.
+// and after normalising, the oriented normal: nl = -_ref_sign(dp) n, -n
+// where dp > 0.
 struct Hit {
   V3 hp, n0, n, nl;
-  float q, sn, inv, dp, sgn;
+  float q, inv, dp, sgn;
 };
 
 __device__ __forceinline__ Hit hit_frame(const Scene& S, V3 o, V3 d, float t, int hid) {
   Hit h;
-  h.hp = o + t * d;
-  h.n0 = h.hp - S.center(hid);
-  h.q = dot(h.n0, h.n0);
-  h.sn = sqrtf(fmaxf(h.q, kNormFloor));
-  h.inv = 1.0f / h.sn;
-  h.n = h.n0 * h.inv;
-  h.dp = dot(h.n, d);
-  h.sgn = h.dp > 0.0f ? -1.0f : 1.0f;  // -_ref_sign(dp)
+  h.hp = vadd(o, vscale(t, d));
+  h.n0 = vsub(h.hp, S.center(hid));
+  h.q = vdot(h.n0, h.n0);
+  h.inv = 1.0f / sqrtf(fmaxf(h.q, kNormFloor));
+  h.n = vscale(h.inv, h.n0);
+  h.dp = vdot(h.n, d);
+  h.sgn = h.dp > 0.0f ? -1.0f : 1.0f;
   h.nl = h.sgn * h.n;
   return h;
 }
@@ -214,120 +282,153 @@ __device__ __forceinline__ Hit hit_frame(const Scene& S, V3 o, V3 d, float t, in
 struct Light {
   V3 usp, sd0, sd;
   float len2, length, ls, wo, wi, a1, a2, s;
-  bool cand;  // the sample's half and wi > 0
 };
 
 __device__ __forceinline__ Light light_sample(const Scene& S, int li, float u1, float u2, V3 hp,
                                               V3 nl) {
   Light L;
-  const float zz = 1.0f - 2.0f * u1;
-  const float rr = sqrtf(fmaxf(1.0f - zz * zz, 0.0f));
-  const float phi = kTwoPi * u2;
-  L.usp = v3(rr * cosf(phi), rr * sinf(phi), zz);
-  const float R = S.radius(li);
-  L.sd0 = (R * L.usp + S.center(li)) - hp;
-  L.len2 = dot(L.sd0, L.sd0);
+  const float zz = Rn::sub(1.0f, Rn::mul(2.0f, u1));
+  const float rr = sqrtf(fmaxf(Rn::sub(1.0f, Rn::mul(zz, zz)), 0.0f));
+  const float phi = Rn::mul(kTwoPi, u2);
+  L.usp = v3(Rn::mul(rr, cosf(phi)), Rn::mul(rr, sinf(phi)), zz);
+  const float rad = S.radius(li);
+  L.sd0 = vsub(vadd(vscale(rad, L.usp), S.center(li)), hp);
+  L.len2 = vdot(L.sd0, L.sd0);
   L.length = L.len2 > 0.0f ? sqrtf(L.len2) : 0.0f;
   L.ls = fmaxf(L.length, kLenFloor);
   L.sd = v3(L.sd0.x / L.ls, L.sd0.y / L.ls, L.sd0.z / L.ls);
-  L.wo = dot(L.sd, L.usp);
-  L.wi = dot(L.sd, nl);
-  L.a1 = kFourPi * R;
-  L.a2 = L.a1 * R;
-  L.s = L.a2 * L.wi * (-L.wo) / (L.ls * L.ls);
-  L.cand = !(L.wo > 0.0f) && L.wi > 0.0f;
+  L.wo = vdot(L.sd, L.usp);
+  L.wi = vdot(L.sd, nl);
+  L.a1 = Rn::mul(kFourPi, rad);
+  L.a2 = Rn::mul(L.a1, rad);
+  L.s = Rn::mul(Rn::mul(L.a2, L.wi), -L.wo) / Rn::mul(L.ls, L.ls);
   return L;
 }
 
 // ops/sampling.cosine_sample_dir.
 struct CosDir {
   V3 a, u0, u, v, w;
-  float un, uinv, ca, sa, wz;
+  float uinv, ca, sa, wz;
 };
 
 __device__ __forceinline__ V3 cosine_dir(V3 nl, float r1u, float r2u, CosDir& c) {
-  const float r1 = kTwoPi * r1u;
+  const float r1 = Rn::mul(kTwoPi, r1u);
   const float r2s = sqrtf(r2u);
   c.w = nl;
   c.a = fabsf(nl.x) > 0.1f ? v3(0.0f, 1.0f, 0.0f) : v3(1.0f, 0.0f, 0.0f);
   c.u0 = cross_t(c.a, c.w);
-  c.un = sqrtf(dot(c.u0, c.u0));
-  c.uinv = 1.0f / c.un;
-  c.u = c.u0 * c.uinv;
+  c.uinv = 1.0f / sqrtf(vdot(c.u0, c.u0));
+  c.u = vscale(c.uinv, c.u0);
   c.v = cross_t(c.w, c.u);
-  c.ca = cosf(r1) * r2s;
-  c.sa = sinf(r1) * r2s;
-  c.wz = sqrtf(fmaxf(1.0f - r2u, 0.0f));
-  return c.u * c.ca + c.v * c.sa + c.w * c.wz;
+  c.ca = Rn::mul(cosf(r1), r2s);
+  c.sa = Rn::mul(sinf(r1), r2s);
+  c.wz = sqrtf(fmaxf(Rn::sub(1.0f, r2u), 0.0f));
+  return vadd(vadd(vscale(c.ca, c.u), vscale(c.sa, c.v)), vscale(c.wz, c.w));
 }
 
-// The REFR branch's smooth part, for a lane without total internal
-// reflection.
+// The REFR branch: refr_start up to cos2t (its sign is total internal
+// reflection), refr_rest the smooth part of a lane without it.
 struct Refr {
   V3 td0, td;
-  float nnt, ddn, cos2t, sc, si, kk, tq, ts, tinv, c1, m1, m2, m3, m4, re, p, rp, tp;
-  bool into, tir;
+  float nnt, ddn, cos2t, sc, si, kk, tq, tinv, c1, m1, m2, m3, m4, re, p, rp, tp;
 };
 
-__device__ __forceinline__ void refr_frame(V3 d, const Hit& h, Refr& r) {
-  r.into = dot(h.n, h.nl) > 0.0f;
-  r.nnt = r.into ? (1.0f / 1.5f) : 1.5f;
-  r.ddn = dot(d, h.nl);
-  r.cos2t = 1.0f - r.nnt * r.nnt * (1.0f - r.ddn * r.ddn);
-  r.tir = r.cos2t < 0.0f;
-  if (r.tir) return;
+__device__ __forceinline__ void refr_start(V3 d, const Hit& h, bool into, Refr& r) {
+  r.nnt = into ? (1.0f / 1.5f) : 1.5f;
+  r.ddn = vdot(d, h.nl);
+  r.cos2t = Rn::sub(1.0f, Rn::mul(Rn::mul(r.nnt, r.nnt), Rn::sub(1.0f, Rn::mul(r.ddn, r.ddn))));
+}
+
+__device__ __forceinline__ void refr_rest(V3 d, const Hit& h, bool into, Refr& r) {
   r.sc = sqrtf(r.cos2t);
-  r.si = r.into ? 1.0f : -1.0f;
-  r.kk = r.si * (r.ddn * r.nnt + r.sc);
-  r.td0 = r.nnt * d - r.kk * h.n;
-  r.tq = dot(r.td0, r.td0);
-  r.ts = sqrtf(fmaxf(r.tq, kNormFloor));
-  r.tinv = 1.0f / r.ts;
-  r.td = r.td0 * r.tinv;
-  r.c1 = 1.0f - (r.into ? -r.ddn : dot(r.td, h.n));
-  r.m1 = 0.96f * r.c1;  // (1 - r0) * c1, r0 = 0.04
-  r.m2 = r.m1 * r.c1;
-  r.m3 = r.m2 * r.c1;
-  r.m4 = r.m3 * r.c1;
-  r.re = 0.04f + r.m4 * r.c1;
-  r.p = 0.25f + 0.5f * r.re;
+  r.si = into ? 1.0f : -1.0f;
+  r.kk = Rn::mul(r.si, Rn::add(Rn::mul(r.ddn, r.nnt), r.sc));
+  r.td0 = vsub(vscale(r.nnt, d), vscale(r.kk, h.n));
+  r.tq = vdot(r.td0, r.td0);
+  r.tinv = 1.0f / sqrtf(fmaxf(r.tq, kNormFloor));
+  r.td = vscale(r.tinv, r.td0);
+  r.c1 = Rn::sub(1.0f, into ? -r.ddn : vdot(r.td, h.n));
+  r.m1 = Rn::mul(0.96f, r.c1);  // (1 - r0) * c1, r0 = 0.04
+  r.m2 = Rn::mul(r.m1, r.c1);
+  r.m3 = Rn::mul(r.m2, r.c1);
+  r.m4 = Rn::mul(r.m3, r.c1);
+  r.re = Rn::add(0.04f, Rn::mul(r.m4, r.c1));
+  r.p = Rn::add(0.25f, Rn::mul(0.5f, r.re));
   r.rp = r.re / r.p;
-  r.tp = (1.0f - r.re) / (1.0f - r.p);
+  r.tp = Rn::sub(1.0f, r.re) / Rn::sub(1.0f, r.p);
 }
 
-// The derivative of sqrt at s = sqrt(x), given the cotangent g of s.
-__device__ __forceinline__ float sqrt_bwd(float g, float s) { return g / (2.0f * s); }
-
-// out = x0 * (1 / sqrt(max(q, floor))), q = x0 . x0: the cotangent of x0.
-// clamp passes a gradient only where q >= floor.
-__device__ __forceinline__ V3 norm_bwd(V3 g, V3 x0, float inv, float s, float q, float floor) {
-  const float g_inv = dot(g, x0);
-  const float g_s = -g_inv * (inv * inv);
-  const float g_q = q >= floor ? sqrt_bwd(g_s, s) : 0.0f;
-  return g * inv + (2.0f * g_q) * x0;
+// The camera ray's direction before normalising: x kcx + y kcy + dir.
+__device__ __forceinline__ V3 camera_dir(const float* cs, float kcx, float kcy) {
+  return v3(Rn::add(Rn::add(Rn::mul(cs[6], kcx), Rn::mul(cs[9], kcy)), cs[3]),
+            Rn::add(Rn::add(Rn::mul(cs[7], kcx), Rn::mul(cs[10], kcy)), cs[4]),
+            Rn::add(Rn::add(Rn::mul(cs[8], kcx), Rn::mul(cs[11], kcy)), cs[5]));
 }
 
-// A warp's gradient table in shared memory.
-struct Grad {
-  float* g;
-  int n;
-  __device__ __forceinline__ void center(int j, V3 v) const {
-    atomicAdd(&g[3 * j], v.x);
-    atomicAdd(&g[3 * j + 1], v.y);
-    atomicAdd(&g[3 * j + 2], v.z);
+// out = x0 * inv, inv = 1 / sqrt(max(x0 . x0, floor)): the cotangent of x0.
+// The clamp passes a gradient only where x0 . x0 >= floor (``ok``).
+__device__ __forceinline__ V3 norm_bwd(V3 g, V3 x0, float inv, bool ok) {
+  const float g_s = -dot(g, x0) * (inv * inv);
+  return g * inv + (ok ? g_s * inv : 0.0f) * x0;
+}
+
+// The warp's sums of its lanes' 8 values, scattered: lane L ends with the
+// sum over the 32 lanes of v[L >> 2], the same in lanes L & ~3 .. L | 3.
+// At each of the first three levels a lane keeps the half of its values
+// that its lane bit selects and adds its partner's copy of that half; the
+// last two add the partners' sums. A fixed pattern of 9 shuffles, where a
+// butterfly per value takes 40.
+__device__ __forceinline__ float warp_sum8(const float (&v)[8]) {
+  const int lane = threadIdx.x & 31;
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+  float w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    w[j] = (b4 ? v[j + 4] : v[j]) + __shfl_xor_sync(kFull, b4 ? v[j] : v[j + 4], 16);
+  float x[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    x[j] = (b3 ? w[j + 2] : w[j]) + __shfl_xor_sync(kFull, b3 ? w[j] : w[j + 2], 8);
+  float y = (b2 ? x[1] : x[0]) + __shfl_xor_sync(kFull, b2 ? x[0] : x[1], 4);
+  y += __shfl_xor_sync(kFull, y, 2);
+  y += __shfl_xor_sync(kFull, y, 1);
+  return y;
+}
+
+// Slot c of sphere j's row in a warp's table: center (0-2), radius (3),
+// then 3 values at `at` + 3 j (4-6: the colour's or the emission's); slot 7
+// is unused.
+__device__ __forceinline__ void put_slot(float* tab, int n, int j, int at, int c, float x) {
+  if (c < 3) {
+    tab[3 * j + c] += x;
+  } else if (c == 3) {
+    tab[3 * n + j] += x;
+  } else if (c < 7) {
+    tab[at + 3 * j + c - 4] += x;
   }
-  __device__ __forceinline__ void radius(int j, float v) const { atomicAdd(&g[3 * n + j], v); }
-  __device__ __forceinline__ void emission(int j, V3 v) const {
-    atomicAdd(&g[4 * n + 3 * j], v.x);
-    atomicAdd(&g[4 * n + 3 * j + 1], v.y);
-    atomicAdd(&g[4 * n + 3 * j + 2], v.z);
+}
+
+// Adds each lane's 8 slots v into row `key` of the warp's table (key < 0:
+// nothing). One group of lanes with equal keys at a time: the group's sums
+// are warp_sum8 over the warp (the other lanes add zeros), and one lane per
+// slot writes its sum with a plain add. Groups hold distinct keys and a
+// group's slots distinct entries, so no two writes meet, and a warp whose
+// lanes share one key is one round. All 32 lanes call it together.
+__device__ __forceinline__ void warp_add(int key, const float (&v)[8], float* tab, int n,
+                                         int at) {
+  const int lane = threadIdx.x & 31;
+  unsigned todo = __ballot_sync(kFull, key >= 0);
+  while (todo != 0u) {
+    const int k = __shfl_sync(kFull, key, __ffs(todo) - 1);
+    const bool mine = key == k;
+    todo &= ~__ballot_sync(kFull, mine);
+    float s[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) s[c] = mine ? v[c] : 0.0f;
+    const float sum = warp_sum8(s);
+    if ((lane & 3) == 0) put_slot(tab, n, k, at, lane >> 2, sum);
   }
-  __device__ __forceinline__ void color(int j, V3 v) const {
-    atomicAdd(&g[7 * n + 3 * j], v.x);
-    atomicAdd(&g[7 * n + 3 * j + 1], v.y);
-    atomicAdd(&g[7 * n + 3 * j + 2], v.z);
-  }
-};
+}
 
 // The replay of one pass: the camera ray's jitter (kcx, kcy), the records
 // of its bounces, its radiance.
@@ -337,16 +438,17 @@ __device__ __forceinline__ int replay(const Scene& S, const float* cs, float px,
                                       uint32_t& s1, float& kcx, float& kcy, Rec* recs, V3& rad) {
   const float r1 = draw<RNG>(s0, s1);
   const float r2 = draw<RNG>(s0, s1);
-  kcx = (px + (r1 - 0.5f)) * inv_w - 0.5f;
-  kcy = (py + (r2 - 0.5f)) * inv_h - 0.5f;
-  const V3 rd = v3(cs[6] * kcx + cs[9] * kcy + cs[3], cs[7] * kcx + cs[10] * kcy + cs[4],
-                   cs[8] * kcx + cs[11] * kcy + cs[5]);
-  V3 o = v3(0.1f * rd.x + cs[0], 0.1f * rd.y + cs[1], 0.1f * rd.z + cs[2]);
-  V3 d = rd * (1.0f / sqrtf(dot(rd, rd)));
+  kcx = Rn::sub(Rn::mul(Rn::add(px, Rn::sub(r1, 0.5f)), inv_w), 0.5f);
+  kcy = Rn::sub(Rn::mul(Rn::add(py, Rn::sub(r2, 0.5f)), inv_h), 0.5f);
+  const V3 rd = camera_dir(cs, kcx, kcy);
+  V3 o = v3(Rn::add(Rn::mul(0.1f, rd.x), cs[0]), Rn::add(Rn::mul(0.1f, rd.y), cs[1]),
+            Rn::add(Rn::mul(0.1f, rd.z), cs[2]));
+  V3 d = vscale(1.0f / sqrtf(vdot(rd, rd)), rd);
   V3 thr = v3(1.0f, 1.0f, 1.0f);
   rad = v3(0.0f, 0.0f, 0.0f);
   bool spec = true;
   int nrec = 0;
+  const int words = (S.n_lights + 31) >> 5;
   for (int depth = 0; depth < max_depth; ++depth) {
     float t;
     int hid;
@@ -359,18 +461,17 @@ __device__ __forceinline__ int replay(const Scene& S, const float* cs, float px,
     rec.t = t;
     rec.s0 = s0;
     rec.s1 = s1;
-    rec.hid = hid;
-    rec.spec = spec;
-    for (int w = 0; w < kMaxLightWords; ++w) rec.ok[w] = 0u;
+    for (int w = 0; w < words; ++w) rec.ok[w] = 0u;
+    uint32_t f = (uint32_t)hid | (spec ? kSpecIn : 0u);
     const Hit h = hit_frame(S, o, d, t, hid);
     if (S.emissive(hid)) {
-      if (spec) rad = rad + mul(fabsf(h.dp) * thr, S.emission(hid));
-      rec.kind = kLight;
+      if (spec) rad = vadd(rad, vmul(vscale(fabsf(h.dp), thr), S.emission(hid)));
+      rec.flags = f | ((uint32_t)kLight << kKindShift);
       break;  // a light ends the path
     }
     const float mat = S.refl(hid);
     const V3 c = S.color(hid);
-    const V3 tc = mul(thr, c);
+    const V3 tc = vmul(thr, c);
     if (mat == 0.0f) {
       V3 ld = v3(0.0f, 0.0f, 0.0f);
       for (int k = 0; k < S.n_lights; ++k) {
@@ -378,14 +479,18 @@ __device__ __forceinline__ int replay(const Scene& S, const float* cs, float px,
         const float u2 = draw<RNG>(s0, s1);
         const float u1 = draw<RNG>(s0, s1);
         const Light L = light_sample(S, li, u1, u2, h.hp, h.nl);
-        if (L.cand && !any_hit(S, h.hp, L.sd, L.length - kEps)) {
+        if (!(L.wo > 0.0f) && L.wi > 0.0f &&
+            !any_hit(S, h.hp, L.sd, Rn::sub(L.length, kEps))) {
           rec.ok[k >> 5] |= 1u << (k & 31);
-          ld = ld + L.s * S.emission(li);
+          ld = vadd(ld, vscale(L.s, S.emission(li)));
         }
       }
-      rad = rad + mul(tc, ld);
-      rec.kind = kDiff;
-      if (DIRECT_ONLY) break;  // RadianceDirectLighting: ends after NEE
+      rad = vadd(rad, vmul(tc, ld));
+      f |= (uint32_t)kDiff << kKindShift;
+      if (DIRECT_ONLY) {  // RadianceDirectLighting: ends after NEE
+        rec.flags = f;
+        break;
+      }
       const float r1u = draw<RNG>(s0, s1);
       const float r2u = draw<RNG>(s0, s1);
       CosDir cd;
@@ -393,220 +498,276 @@ __device__ __forceinline__ int replay(const Scene& S, const float* cs, float px,
       thr = tc;
       spec = false;
     } else if (mat == 1.0f) {
-      d = d - (2.0f * h.dp) * h.n;
+      d = vsub(d, vscale(Rn::mul(2.0f, h.dp), h.n));
       thr = tc;
       spec = true;
-      rec.kind = kSpec;
+      f |= (uint32_t)kSpec << kKindShift;
     } else {
+      const bool into = vdot(h.n, h.nl) > 0.0f;
       Refr r;
-      refr_frame(d, h, r);
-      const V3 refl_dir = d - (2.0f * h.dp) * h.n;
-      if (r.tir) {
+      refr_start(d, h, into, r);
+      const V3 refl_dir = vsub(d, vscale(Rn::mul(2.0f, h.dp), h.n));
+      if (r.cos2t < 0.0f) {
         d = refl_dir;
         thr = tc;
-        rec.kind = kTir;
-      } else if (draw<RNG>(s0, s1) < r.p) {
-        thr = mul(r.rp * thr, c);
-        d = refl_dir;
-        rec.kind = kRefl;
+        f |= (uint32_t)kTir << kKindShift;
       } else {
-        thr = mul(r.tp * thr, c);
-        d = r.td;
-        rec.kind = kTrans;
+        refr_rest(d, h, into, r);
+        if (draw<RNG>(s0, s1) < r.p) {
+          thr = vmul(vscale(r.rp, thr), c);
+          d = refl_dir;
+          f |= (uint32_t)kRefl << kKindShift;
+        } else {
+          thr = vmul(vscale(r.tp, thr), c);
+          d = r.td;
+          f |= (uint32_t)kTrans << kKindShift;
+        }
       }
       spec = true;
     }
+    rec.flags = f;
     o = h.hp;
   }
   return nrec;
 }
 
-// The reverse sweep of one pass with radiance cotangent G: the scene's
-// gradients into the warp's table, the camera basis's into gb.
+// The reverse sweep of one pass with radiance cotangent G, the warp's lanes
+// in lockstep: the scene's gradients into the warp's table, the camera
+// basis's into gb. All 32 lanes call it together (a lane with no records,
+// nrec = 0, adds zeros).
 template <bool DIRECT_ONLY, int RNG>
-__device__ __forceinline__ void reverse(const Scene& S, const Grad& gt, const float* cs,
+__device__ __forceinline__ void reverse(const Scene& S, float* tab, const float* cs,
                                         const Rec* recs, int nrec, float kcx, float kcy, V3 G,
                                         float* gb) {
-  V3 g_o = v3(0.0f, 0.0f, 0.0f), g_d = g_o, g_thr = g_o;
-  const V3 zero = g_o;
-  for (int i = nrec - 1; i >= 0; --i) {
-    const Rec& rec = recs[i];
-    const V3 o = rec.o, d = rec.d, thr = rec.thr;
-    const int hid = rec.hid;
-    const Hit h = hit_frame(S, o, d, rec.t, hid);
+  const V3 zero = v3(0.0f, 0.0f, 0.0f);
+  const int n = S.n;
+  V3 g_o = zero, g_d = zero, g_thr = zero;
+  const int top = __reduce_max_sync(kFull, nrec);
+  for (int i = top - 1; i >= 0; --i) {
+    const bool act = i < nrec;
+    const Rec& rec = recs[act ? i : 0];
+    const uint32_t f = act ? rec.flags : 0u;
+    const uint32_t kind = (f >> kKindShift) & 7u;
+    const int hid = (int)(f & kHidMask);
+    const bool diff = act && kind == kDiff;
+    V3 o = zero, d = zero, thr = zero;
+    float t = 0.0f;
+    Hit h;
     // The cotangents of this bounce's outputs (o, d, thr of the next).
     const V3 g_on = g_o, g_dn = g_d, g_thrn = g_thr;
-    g_o = zero;
-    g_d = zero;
-    g_thr = zero;
-    V3 g_hp = rec.kind == kLight ? zero : g_on;
-    V3 g_n = zero, g_nl = zero;
+    V3 g_hp = zero, g_n = zero, g_nl = zero, ld = zero;
     float g_dp = 0.0f;
-    if (rec.kind == kLight) {
-      if (rec.spec) {
-        // rad += (|dp| thr) e
-        const float adp = fabsf(h.dp);
-        const V3 e = S.emission(hid);
-        const V3 g_m = mul(G, e);
-        gt.emission(hid, mul(G, adp * thr));
-        g_thr = g_m * adp;
-        g_dp = dot(g_m, thr) * (h.dp > 0.0f ? 1.0f : (h.dp < 0.0f ? -1.0f : 0.0f));
-      }
-    } else {
-      const V3 c = S.color(hid);
-      V3 g_tc = zero;
-      if (rec.kind == kDiff) {
-        // rad += tc * ld, ld the sum over the passing light samples.
-        const V3 tc = mul(thr, c);
-        const V3 g_ld = mul(G, tc);
-        V3 ld = zero;
-        uint32_t s0 = rec.s0, s1 = rec.s1;
-        for (int k = 0; k < S.n_lights; ++k) {
-          const int li = S.lights[k];
+    uint32_t s0 = 0u, s1 = 0u;
+    if (act) {
+      o = rec.o;
+      d = rec.d;
+      thr = rec.thr;
+      t = rec.t;
+      s0 = rec.s0;
+      s1 = rec.s1;
+      h = hit_frame(S, o, d, t, hid);
+      g_o = zero;
+      g_d = zero;
+      g_thr = zero;
+      if (kind != kLight) g_hp = g_on;
+    }
+    // rad += tc * ld, ld the sum over the passing light samples: each
+    // light's row (its center, radius and emission) summed over the warp.
+    if (__any_sync(kFull, diff)) {
+      const V3 g_ld = diff ? mul(G, mul(thr, S.color(hid))) : zero;
+      for (int k = 0; k < S.n_lights; ++k) {
+        const int li = S.lights[k];
+        float cl[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        bool lit = false;
+        if (diff) {
           const float u2 = draw<RNG>(s0, s1);
           const float u1 = draw<RNG>(s0, s1);
-          if (!((rec.ok[k >> 5] >> (k & 31)) & 1u)) continue;
-          const Light L = light_sample(S, li, u1, u2, h.hp, h.nl);
-          const V3 e = S.emission(li);
-          ld = ld + L.s * e;
-          gt.emission(li, g_ld * L.s);
-          // s = ((a2 wi) (-wo)) / (ls ls), a2 = (4 pi R) R
-          const float g_s = dot(g_ld, e);
-          const float den = L.ls * L.ls;
-          const float a3 = L.a2 * L.wi;
-          const float a4 = a3 * (-L.wo);
-          const float g_a4 = g_s / den;
-          const float g_den = -g_s * a4 / (den * den);
-          float g_ls = 2.0f * L.ls * g_den;
-          const float g_a3 = g_a4 * (-L.wo);
-          const float g_wo = -(g_a4 * a3);
-          const float g_a2 = g_a3 * L.wi;
-          const float g_wi = g_a3 * L.a2;
-          float g_R = g_a2 * L.a1 + (g_a2 * S.radius(li)) * kFourPi;
-          const V3 g_sd = g_wo * L.usp + g_wi * h.nl;
-          g_nl = g_nl + g_wi * L.sd;
-          // sd = sd0 / ls, ls = clamp(length, 1e-20), length = sqrt(len2)
-          V3 g_sd0 = v3(g_sd.x / L.ls, g_sd.y / L.ls, g_sd.z / L.ls);
-          g_ls += -dot(g_sd, L.sd0) / (L.ls * L.ls);
-          const float g_len = L.length >= kLenFloor ? g_ls : 0.0f;
-          const float g_len2 = L.len2 > 0.0f ? sqrt_bwd(g_len, L.length) : 0.0f;
-          g_sd0 = g_sd0 + (2.0f * g_len2) * L.sd0;
-          // sd0 = R usp + C - hp
-          g_R += dot(g_sd0, L.usp);
-          gt.radius(li, g_R);
-          gt.center(li, g_sd0);
-          g_hp = g_hp - g_sd0;
-        }
-        g_tc = mul(G, ld);
-        if (!DIRECT_ONLY) {
-          // d' = cosine_dir(nl), thr' = tc
-          const float r1u = draw<RNG>(s0, s1);
-          const float r2u = draw<RNG>(s0, s1);
-          CosDir cd;
-          cosine_dir(h.nl, r1u, r2u, cd);
-          V3 g_u = cd.ca * g_dn;
-          const V3 g_v = cd.sa * g_dn;
-          V3 g_w = cd.wz * g_dn;
-          g_w = g_w + cross(cd.u, g_v);  // v = w x u
-          g_u = g_u + cross(g_v, cd.w);
-          const V3 g_u0 = norm_bwd(g_u, cd.u0, cd.uinv, cd.un, 1.0f, 0.0f);
-          g_w = g_w + cross(g_u0, cd.a);  // u0 = a x w
-          g_nl = g_nl + g_w;
-          g_tc = g_tc + g_thrn;
-        }
-      } else {
-        if (rec.kind != kTrans) {
-          // d' = d - (2 dp) n
-          g_d = g_d + g_dn;
-          g_n = g_n - (2.0f * h.dp) * g_dn;
-          g_dp += 2.0f * (-dot(g_dn, h.n));
-        }
-        if (rec.kind == kSpec || rec.kind == kTir) g_tc = g_tc + g_thrn;
-        if (rec.kind == kRefl || rec.kind == kTrans) {
-          Refr r;
-          refr_frame(d, h, r);
-          // thr' = (scale thr) c, scale rp or tp
-          const float sc = rec.kind == kRefl ? r.rp : r.tp;
-          const V3 g_st = mul(g_thrn, c);
-          gt.color(hid, mul(g_thrn, sc * thr));
-          const float g_sc = dot(g_st, thr);
-          g_thr = g_thr + g_st * sc;
-          float g_re, g_p;
-          if (rec.kind == kRefl) {  // rp = re / p
-            g_re = g_sc / r.p;
-            g_p = -g_sc * r.re / (r.p * r.p);
-          } else {  // tp = (1 - re) / (1 - p)
-            const float omp = 1.0f - r.p;
-            g_re = -(g_sc / omp);
-            g_p = g_sc * (1.0f - r.re) / (omp * omp);
+          lit = (rec.ok[k >> 5] >> (k & 31)) & 1u;
+          if (lit) {
+            const Light L = light_sample(S, li, u1, u2, h.hp, h.nl);
+            const V3 e = S.emission(li);
+            ld = ld + L.s * e;
+            const V3 g_e = g_ld * L.s;
+            // s = ((a2 wi) (-wo)) / (ls ls), a2 = (4 pi R) R
+            const float g_s = dot(g_ld, e);
+            const float rls = 1.0f / L.ls;
+            const float rden = rls * rls;
+            const float a3 = L.a2 * L.wi;
+            const float a4 = a3 * (-L.wo);
+            const float g_a4 = g_s * rden;
+            const float g_den = -g_s * a4 * (rden * rden);
+            float g_ls = 2.0f * L.ls * g_den;
+            const float g_a3 = g_a4 * (-L.wo);
+            const float g_wo = -(g_a4 * a3);
+            const float g_a2 = g_a3 * L.wi;
+            const float g_wi = g_a3 * L.a2;
+            float g_R = g_a2 * L.a1 + (g_a2 * S.radius(li)) * kFourPi;
+            const V3 g_sd = g_wo * L.usp + g_wi * h.nl;
+            g_nl = g_nl + g_wi * L.sd;
+            // sd = sd0 / ls, ls = clamp(length, 1e-20), length = sqrt(len2)
+            V3 g_sd0 = g_sd * rls;
+            g_ls += -dot(g_sd, L.sd0) * rden;
+            const float g_len2 =
+                L.length >= kLenFloor && L.len2 > 0.0f ? g_ls * (0.5f / L.length) : 0.0f;
+            g_sd0 = g_sd0 + (2.0f * g_len2) * L.sd0;
+            // sd0 = R usp + C - hp
+            g_R += dot(g_sd0, L.usp);
+            g_hp = g_hp - g_sd0;
+            cl[0] = g_sd0.x;
+            cl[1] = g_sd0.y;
+            cl[2] = g_sd0.z;
+            cl[3] = g_R;
+            cl[4] = g_e.x;
+            cl[5] = g_e.y;
+            cl[6] = g_e.z;
           }
-          g_re += 0.5f * g_p;
-          // re = 0.04 + ((((0.96 c1) c1) c1) c1) c1
-          const float g_m4 = g_re * r.c1;
-          float g_c1 = g_re * r.m4;
-          const float g_m3 = g_m4 * r.c1;
-          g_c1 += g_m4 * r.m3;
-          const float g_m2 = g_m3 * r.c1;
-          g_c1 += g_m3 * r.m2;
-          const float g_m1 = g_m2 * r.c1;
-          g_c1 += g_m2 * r.m1;
-          g_c1 += g_m1 * 0.96f;
-          float g_ddn = 0.0f;
-          V3 g_td = rec.kind == kTrans ? g_dn : zero;
-          if (r.into) {
-            g_ddn += g_c1;  // c1 = 1 + ddn
-          } else {  // c1 = 1 - td . n
-            g_td = g_td - g_c1 * h.n;
-            g_n = g_n - g_c1 * r.td;
-          }
-          const V3 g_td0 = norm_bwd(g_td, r.td0, r.tinv, r.ts, r.tq, kNormFloor);
-          // td0 = nnt d - kk n
-          g_d = g_d + r.nnt * g_td0;
-          g_n = g_n - r.kk * g_td0;
-          const float g_in = r.si * (-dot(g_td0, h.n));
-          g_ddn += g_in * r.nnt;
-          // kk = si (ddn nnt + sqrt(cos2t)), cos2t = 1 - nnt^2 (1 - ddn^2)
-          const float g_c2 = sqrt_bwd(g_in, r.sc);
-          g_ddn += g_c2 * (r.nnt * r.nnt) * 2.0f * r.ddn;
-          g_d = g_d + g_ddn * h.nl;
-          g_nl = g_nl + g_ddn * d;
+        }
+        if (__any_sync(kFull, lit)) {
+          warp_add(lit ? li : -1, cl, tab, n, 4 * n);
         }
       }
-      // tc = thr * c
-      g_thr = g_thr + mul(g_tc, c);
-      gt.color(hid, mul(g_tc, thr));
-      g_n = g_n + h.sgn * g_nl;
     }
-    // dp = n . d
-    g_n = g_n + g_dp * d;
-    g_d = g_d + g_dp * h.n;
-    const V3 g_n0 = norm_bwd(g_n, h.n0, h.inv, h.sn, h.q, kNormFloor);
-    g_hp = g_hp + g_n0;
-    // hp = o + t d
-    const float g_t = dot(g_hp, d);
-    g_o = g_o + g_hp;
-    g_d = g_d + rec.t * g_hp;
-    // t = b - sq or b + sq; det = b b - op . op + r r; op = C - o
-    const V3 C = S.center(hid);
-    const float r = S.radius(hid);
-    const V3 op = C - o;
-    const float b = dot(op, d);
-    const float det = b * b - dot(op, op) + r * r;
-    const float sq = det > 0.0f ? sqrtf(det) : 0.0f;
-    const float sgn_sq = (b - sq) > kEps ? -1.0f : 1.0f;
-    const float g_det = det > 0.0f ? sqrt_bwd(sgn_sq * g_t, sq) : 0.0f;
-    const float g_b = g_t + 2.0f * b * g_det;
-    const V3 g_op = g_b * d - (2.0f * g_det) * op;
-    g_d = g_d + g_b * op;
-    g_o = g_o - g_op;
-    gt.radius(hid, 2.0f * r * g_det);
-    gt.center(hid, g_op - g_n0);
+    // The rest of the bounce, and the hit sphere's row: center, radius and
+    // colour in ch, its emission in ce.
+    float ch[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    float ce[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    bool has_e = false;
+    if (act) {
+      if (kind == kLight) {
+        if (f & kSpecIn) {
+          // rad += (|dp| thr) e
+          const float adp = fabsf(h.dp);
+          const V3 e = S.emission(hid);
+          const V3 g_m = mul(G, e);
+          const V3 g_e = mul(G, adp * thr);
+          ce[4] = g_e.x;
+          ce[5] = g_e.y;
+          ce[6] = g_e.z;
+          has_e = true;
+          g_thr = g_m * adp;
+          g_dp = dot(g_m, thr) * (h.dp > 0.0f ? 1.0f : (h.dp == 0.0f ? 0.0f : -1.0f));
+        }
+      } else {
+        const V3 c = S.color(hid);
+        V3 g_tc = zero, g_c = zero;
+        if (kind == kDiff) {
+          g_tc = mul(G, ld);
+          if (!DIRECT_ONLY) {
+            // d' = cosine_dir(nl), thr' = tc
+            const float r1u = draw<RNG>(s0, s1);
+            const float r2u = draw<RNG>(s0, s1);
+            CosDir cd;
+            cosine_dir(h.nl, r1u, r2u, cd);
+            V3 g_u = cd.ca * g_dn;
+            const V3 g_v = cd.sa * g_dn;
+            V3 g_w = cd.wz * g_dn;
+            g_w = g_w + cross(cd.u, g_v);  // v = w x u
+            g_u = g_u + cross(g_v, cd.w);
+            const V3 g_u0 = norm_bwd(g_u, cd.u0, cd.uinv, true);
+            g_w = g_w + cross(g_u0, cd.a);  // u0 = a x w
+            g_nl = g_nl + g_w;
+            g_tc = g_tc + g_thrn;
+          }
+        } else {
+          if (kind != kTrans) {
+            // d' = d - (2 dp) n
+            g_d = g_d + g_dn;
+            g_n = g_n - (2.0f * h.dp) * g_dn;
+            g_dp += 2.0f * (-dot(g_dn, h.n));
+          }
+          if (kind == kSpec || kind == kTir) g_tc = g_tc + g_thrn;
+          if (kind == kRefl || kind == kTrans) {
+            const bool into = vdot(h.n, h.nl) > 0.0f;
+            Refr r;
+            refr_start(d, h, into, r);
+            refr_rest(d, h, into, r);
+            // thr' = (scale thr) c, scale rp or tp
+            const float sc = kind == kRefl ? r.rp : r.tp;
+            const V3 g_st = mul(g_thrn, c);
+            g_c = mul(g_thrn, sc * thr);
+            const float g_sc = dot(g_st, thr);
+            g_thr = g_thr + g_st * sc;
+            float g_re, g_p;
+            if (kind == kRefl) {  // rp = re / p
+              const float rpp = 1.0f / r.p;
+              g_re = g_sc * rpp;
+              g_p = -g_sc * r.re * (rpp * rpp);
+            } else {  // tp = (1 - re) / (1 - p)
+              const float romp = 1.0f / (1.0f - r.p);
+              g_re = -(g_sc * romp);
+              g_p = g_sc * (1.0f - r.re) * (romp * romp);
+            }
+            g_re += 0.5f * g_p;
+            // re = 0.04 + ((((0.96 c1) c1) c1) c1) c1
+            const float g_m4 = g_re * r.c1;
+            float g_c1 = g_re * r.m4;
+            const float g_m3 = g_m4 * r.c1;
+            g_c1 += g_m4 * r.m3;
+            const float g_m2 = g_m3 * r.c1;
+            g_c1 += g_m3 * r.m2;
+            const float g_m1 = g_m2 * r.c1;
+            g_c1 += g_m2 * r.m1;
+            g_c1 += g_m1 * 0.96f;
+            float g_ddn = 0.0f;
+            V3 g_td = kind == kTrans ? g_dn : zero;
+            if (into) {
+              g_ddn += g_c1;  // c1 = 1 + ddn
+            } else {  // c1 = 1 - td . n
+              g_td = g_td - g_c1 * h.n;
+              g_n = g_n - g_c1 * r.td;
+            }
+            const V3 g_td0 = norm_bwd(g_td, r.td0, r.tinv, r.tq >= kNormFloor);
+            // td0 = nnt d - kk n
+            g_d = g_d + r.nnt * g_td0;
+            g_n = g_n - r.kk * g_td0;
+            const float g_in = r.si * (-dot(g_td0, h.n));
+            g_ddn += g_in * r.nnt;
+            // kk = si (ddn nnt + sqrt(cos2t)), cos2t = 1 - nnt^2 (1 - ddn^2)
+            const float g_c2 = g_in / (2.0f * r.sc);
+            g_ddn += g_c2 * (r.nnt * r.nnt) * 2.0f * r.ddn;
+            g_d = g_d + g_ddn * h.nl;
+            g_nl = g_nl + g_ddn * d;
+          }
+        }
+        // tc = thr * c
+        g_thr = g_thr + mul(g_tc, c);
+        g_c = g_c + mul(g_tc, thr);
+        ch[4] = g_c.x;
+        ch[5] = g_c.y;
+        ch[6] = g_c.z;
+        g_n = g_n + h.sgn * g_nl;
+      }
+      // dp = n . d
+      g_n = g_n + g_dp * d;
+      g_d = g_d + g_dp * h.n;
+      const V3 g_n0 = norm_bwd(g_n, h.n0, h.inv, h.q >= kNormFloor);
+      g_hp = g_hp + g_n0;
+      // hp = o + t d
+      const float g_t = dot(g_hp, d);
+      g_o = g_o + g_hp;
+      g_d = g_d + t * g_hp;
+      // t = b - sq or b + sq; det = b b - op . op + r r; op = C - o
+      const Quad qd = quad(S.geom[hid], o, d);
+      const float r = S.radius(hid);
+      const float sgn_sq = Rn::sub(qd.b, qd.sq) > kEps ? -1.0f : 1.0f;
+      const float g_det = qd.det > 0.0f ? sgn_sq * g_t / (2.0f * qd.sq) : 0.0f;
+      const float g_b = g_t + 2.0f * qd.b * g_det;
+      const V3 g_op = g_b * d - (2.0f * g_det) * qd.op;
+      g_d = g_d + g_b * qd.op;
+      g_o = g_o - g_op;
+      const V3 g_ctr = g_op - g_n0;
+      ch[0] = g_ctr.x;
+      ch[1] = g_ctr.y;
+      ch[2] = g_ctr.z;
+      ch[3] = 2.0f * r * g_det;
+    }
+    warp_add(act ? hid : -1, ch, tab, n, 7 * n);
+    // The emission only where some lane saw a light by a specular path.
+    if (__any_sync(kFull, has_e)) warp_add(has_e ? hid : -1, ce, tab, n, 4 * n);
   }
   // The camera ray: rd = x kcx + y kcy + dir; o = 0.1 rd + orig; d = rd / |rd|.
-  const V3 rd = v3(cs[6] * kcx + cs[9] * kcy + cs[3], cs[7] * kcx + cs[10] * kcy + cs[4],
-                   cs[8] * kcx + cs[11] * kcy + cs[5]);
-  const float s = sqrtf(dot(rd, rd));
-  const V3 g_rd = norm_bwd(g_d, rd, 1.0f / s, s, 1.0f, 0.0f) + 0.1f * g_o;
+  const V3 rd = camera_dir(cs, kcx, kcy);
+  const V3 g_rd = norm_bwd(g_d, rd, 1.0f / sqrtf(dot(rd, rd)), true) + 0.1f * g_o;
   gb[0] += g_o.x;
   gb[1] += g_o.y;
   gb[2] += g_o.z;
@@ -622,7 +783,7 @@ __device__ __forceinline__ void reverse(const Scene& S, const Grad& gt, const fl
 }
 
 template <bool DIRECT_ONLY, int RNG>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 pt_backward_kernel(const float* __restrict__ scene, int n, const int* __restrict__ lights,
                    int n_lights, const float* __restrict__ cam, const uint32_t* __restrict__ s0_in,
                    const uint32_t* __restrict__ s1_in, const float* __restrict__ grad_out,
@@ -645,46 +806,52 @@ pt_backward_kernel(const float* __restrict__ scene, int n, const int* __restrict
   __syncthreads();
 
   const Scene S{g4, tab, ls, n, n_lights};
-  const int warp = threadIdx.x >> 5;
-  const Grad gt{gtab + warp * P, n};
+  float* wtab = gtab + (threadIdx.x >> 5) * P;
   float gb[12];
   for (int k = 0; k < 12; ++k) gb[k] = 0.0f;
+  // Every lane of the block walks the passes (the reverse sweep's warp
+  // reductions need all 32); a lane outside lo..hi-1 replays nothing.
   const int p = lo_aligned + blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= lo && p < hi) {
-    const int lane = p - lo;
-    uint32_t s0 = s0_in[lane], s1 = s1_in[lane];
-    const V3 go = v3(grad_out[3 * lane], grad_out[3 * lane + 1], grad_out[3 * lane + 2]);
-    const float px = (float)(p % width);
-    const float py = (float)((height - 1) - p / width);
-    V3 acc = v3(0.0f, 0.0f, 0.0f);
-    Rec recs[kMaxDepth];
-    for (int pass = 0; pass < num_samples; ++pass) {
-      float kcx, kcy;
+  const bool live = p >= lo && p < hi;
+  const int lane = live ? p - lo : 0;
+  uint32_t s0 = live ? s0_in[lane] : 0u, s1 = live ? s1_in[lane] : 0u;
+  const V3 go = live ? v3(grad_out[3 * lane], grad_out[3 * lane + 1], grad_out[3 * lane + 2])
+                     : v3(0.0f, 0.0f, 0.0f);
+  const float px = (float)(p % width);
+  const float py = (float)((height - 1) - p / width);
+  V3 acc = v3(0.0f, 0.0f, 0.0f);
+  Rec recs[kMaxDepth];
+  for (int pass = 0; pass < num_samples; ++pass) {
+    float kcx = 0.0f, kcy = 0.0f;
+    int nrec = 0;
+    if (live) {
       V3 rad;
-      const int nrec = replay<DIRECT_ONLY, RNG>(S, cs, px, py, inv_w, inv_h, max_depth, s0, s1,
-                                                kcx, kcy, recs, rad);
+      nrec = replay<DIRECT_ONLY, RNG>(S, cs, px, py, inv_w, inv_h, max_depth, s0, s1, kcx, kcy,
+                                      recs, rad);
       // The plain running mean (accum * k + r) / (k + 1): torch's card
       // kernel divides by a scalar as a product with its reciprocal.
       const float k = (float)pass;
-      const float rk = 1.0f / (k + 1.0f);
-      acc = v3((acc.x * k + rad.x) * rk, (acc.y * k + rad.y) * rk, (acc.z * k + rad.z) * rk);
-      reverse<DIRECT_ONLY, RNG>(S, gt, cs, recs, nrec, kcx, kcy, go * weights[pass], gb);
+      const float rk = 1.0f / Rn::add(k, 1.0f);
+      acc = v3(Rn::mul(Rn::add(Rn::mul(acc.x, k), rad.x), rk),
+               Rn::mul(Rn::add(Rn::mul(acc.y, k), rad.y), rk),
+               Rn::mul(Rn::add(Rn::mul(acc.z, k), rad.z), rk));
     }
-    if (img_out != nullptr) {
-      img_out[3 * lane] = acc.x;
-      img_out[3 * lane + 1] = acc.y;
-      img_out[3 * lane + 2] = acc.z;
-    }
+    reverse<DIRECT_ONLY, RNG>(S, wtab, cs, recs, nrec, kcx, kcy, go * weights[pass], gb);
+  }
+  if (live && img_out != nullptr) {
+    img_out[3 * lane] = acc.x;
+    img_out[3 * lane + 1] = acc.y;
+    img_out[3 * lane + 2] = acc.z;
   }
   // The basis: a fixed butterfly over the warp, then lane 0 into the table.
   for (int k = 0; k < 12; ++k) {
     float v = gb[k];
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, off);
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
     gb[k] = v;
   }
   __syncwarp();
   if ((threadIdx.x & 31) == 0)
-    for (int k = 0; k < 12; ++k) gt.g[10 * n + k] += gb[k];
+    for (int k = 0; k < 12; ++k) wtab[10 * n + k] += gb[k];
   __syncthreads();
   float* row = partials + (size_t)blockIdx.x * P;
   for (int i = threadIdx.x; i < P; i += blockDim.x) {
@@ -729,11 +896,15 @@ struct Args {
   float* img_out;
 };
 
+size_t smem_bytes(int n, int n_lights) {
+  return sizeof(float4) * n + sizeof(float) * (kRows * n + 12 + kWarps * (10 * n + 12)) +
+         sizeof(int) * n_lights;
+}
+
 template <bool DIRECT_ONLY, int RNG>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const int P = 10 * a.n + 12;
-  const size_t smem = sizeof(float4) * a.n + sizeof(float) * (kRows * a.n + 12 + kWarps * P) +
-                      sizeof(int) * a.n_lights;
+  const size_t smem = smem_bytes(a.n, a.n_lights);
   const int lo_aligned = a.lo & ~(kThreads - 1);
   const int blocks = (a.hi - lo_aligned + kThreads - 1) / kThreads;
   pt_backward_kernel<DIRECT_ONLY, RNG><<<blocks, kThreads, smem, stream>>>(
@@ -762,7 +933,8 @@ extern "C" int pt_backward_cuda(const float* scene, int n, const int* lights, in
                                 int lo, int hi, int width, int height, float inv_w, float inv_h,
                                 int max_depth, int direct_only, int rng_counter, float* partials,
                                 float* out, float* img_out, void* stream) {
-  if (max_depth > kMaxDepth || n_lights > 32 * kMaxLightWords || hi <= lo)
+  if (max_depth > kMaxDepth || n_lights > 32 * kMaxLightWords || n > (int)kHidMask + 1 ||
+      hi <= lo)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{scene, n, lights, n_lights, cam, s0, s1, grad_out, weights, num_samples, lo, hi,
                width, height, inv_w, inv_h, max_depth, partials, out, img_out};
@@ -774,6 +946,31 @@ extern "C" int pt_backward_cuda(const float* scene, int n, const int* lights, in
     err = rng_counter ? launch<false, kCounter>(a, st) : launch<false, kMwc>(a, st);
   }
   return static_cast<int>(err);
+}
+
+// K1b's build and occupancy (PT or DL, mwc or counter) for a scene of n
+// spheres and n_lights lights: out[0] its warps resident on one SM, as the
+// occupancy calculator gives them, out[1] its registers a thread, out[2] its
+// local memory a thread in bytes (the stack frame). Returns
+// cudaGetLastError()'s code (0 = cudaSuccess).
+extern "C" int pt_backward_occupancy(int n, int n_lights, int direct_only, int rng_counter,
+                                     int* out) {
+  const void* fn = direct_only ? (rng_counter
+                                      ? (const void*)pt_backward_kernel<true, kCounter>
+                                      : (const void*)pt_backward_kernel<true, kMwc>)
+                               : (rng_counter
+                                      ? (const void*)pt_backward_kernel<false, kCounter>
+                                      : (const void*)pt_backward_kernel<false, kMwc>);
+  int blocks = 0;
+  cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, smem_bytes(n, n_lights));
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = blocks * kWarps;
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }
 
 // The number of blocks (rows of partials) of a launch over pixels lo..hi-1.

@@ -30,7 +30,8 @@ import torch
 from se195_raytracer_tpu_torch.core.config import RenderConfig
 from se195_raytracer_tpu_torch.core.types import CameraBasis, Scene
 from se195_raytracer_tpu_torch.kernels._guard import refuse_grad
-from se195_raytracer_tpu_torch.kernels.pt_kernel import UNROLL_MAX_SPHERES, light_list, pack_scene
+from se195_raytracer_tpu_torch.kernels.pt_kernel import (UNROLL_MAX_SPHERES, device_copy, light_list,
+                                                         pack_scene)
 from se195_raytracer_tpu_torch.kernels.seed_kernel import seed_lanes
 
 # The bounces a lane's record holds (kMaxDepth in csrc/pt_backward_kernel.cu).
@@ -100,6 +101,13 @@ def running_mean_weights(spp: int) -> List[float]:
         out.append(float(w))
         g = w * np.float32(k)
     return out[::-1]
+
+
+def running_mean_weights_tensor(spp: int, device) -> torch.Tensor:
+    """``running_mean_weights(spp)`` as a float32 tensor on ``device``, kept
+    by ``device_copy``: a backward on the card copies nothing from the host
+    for them. Callers must not write to it."""
+    return device_copy(running_mean_weights(spp), torch.float32, device)
 
 
 def _flat_cotangent(grad_out: torch.Tensor, lanes: int) -> torch.Tensor:
@@ -176,15 +184,17 @@ def pt_backward_cuda(scene: Scene, basis: CameraBasis, config: RenderConfig,
     for name, t in (("scene", tab), ("basis", cam), ("grad_out", g)):
         if t.device != dev or t.dtype != torch.float32:
             raise ValueError(f"{name}: need float32 on {dev}, got {t.dtype} on {t.device}")
-    s0, s1 = seed_lanes(config.rng, config.seed, config.width * config.height, lanes,
-                        lane_offset=lo, device=dev)
     lights = light_list(scene.light_indices, dev)
-    weights = torch.tensor(running_mean_weights(config.spp), dtype=torch.float32, device=dev)
+    weights = running_mean_weights_tensor(config.spp, dev)
     lib = _lib()
     partials = torch.empty((lib.pt_backward_blocks(lo, hi), grad_size(n)), dtype=torch.float32,
                            device=dev)
     out = torch.empty((grad_size(n),), dtype=torch.float32, device=dev)
     img = torch.empty((lanes, 3), dtype=torch.float32, device=dev) if image else None
+    # Seeded last: the seeding reads one word back, and what follows it on
+    # the host delays the launch.
+    s0, s1 = seed_lanes(config.rng, config.seed, config.width * config.height, lanes,
+                        lane_offset=lo, device=dev)
     err = lib.pt_backward_cuda(
         tab.data_ptr(), n, lights.data_ptr(), len(scene.light_indices), cam.data_ptr(),
         s0.data_ptr(), s1.data_ptr(), g.data_ptr(), weights.data_ptr(), config.spp, lo, hi,
@@ -202,6 +212,21 @@ def pt_backward_cuda(scene: Scene, basis: CameraBasis, config: RenderConfig,
 pt_backward_cuda.launches = 0
 
 
+def occupancy(scene: Scene, config: RenderConfig) -> Dict[str, int]:
+    """K1b's build for ``config``'s integrator and RNG on the current card:
+    its warps resident on one SM for ``scene`` (the CUDA occupancy calculator,
+    from the build's registers and the launch's shared memory), its
+    registers and its local memory (the stack frame) a thread, as
+    ``cudaFuncGetAttributes`` reads them. Needs a GPU."""
+    out = (ctypes.c_int * 3)()
+    err = _lib().pt_backward_occupancy(scene.num_spheres, len(scene.light_indices),
+                                       int(config.integrator == "dl"),
+                                       int(config.rng == "counter"), out)
+    if err != 0:
+        raise RuntimeError(f"pt_backward_occupancy failed: CUDA error {err}")
+    return {"resident_warps_per_sm": out[0], "registers": out[1], "local_bytes": out[2]}
+
+
 def _lib() -> ctypes.CDLL:
     from se195_raytracer_tpu_torch.kernels._build import load
 
@@ -213,4 +238,6 @@ def _lib() -> ctypes.CDLL:
         lib.pt_backward_cuda.restype = ctypes.c_int
         lib.pt_backward_blocks.argtypes = [i, i]
         lib.pt_backward_blocks.restype = ctypes.c_int
+        lib.pt_backward_occupancy.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+        lib.pt_backward_occupancy.restype = ctypes.c_int
     return lib

@@ -77,12 +77,25 @@ _MAX_SMEM_BYTES = 227 * 1024
 PTState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]
 
 
+@functools.lru_cache(maxsize=64)
+def _device_copy(values: Tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def device_copy(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)``, copied to the
+    device once per (values, dtype, device) and kept: the copy from the host
+    would stall every launch that needs it. Callers must not write to it."""
+    return _device_copy(tuple(values), dtype, torch.device(device))
+
+
 def pack_scene(scene: Scene) -> torch.Tensor:
     """[12, N] float32 scene table. Row 11 is the emissive flag: the
     reference's viszero test (vec.h:44, y-bug included), baked host-side
     from ``light_indices``."""
-    emissive = torch.zeros((1, scene.num_spheres), dtype=torch.float32, device=scene.device)
-    emissive[0, list(scene.light_indices)] = 1.0
+    emissive = torch.zeros((1, scene.num_spheres), dtype=torch.float32,
+                           device=scene.device).index_fill_(
+        1, device_copy(scene.light_indices, torch.int64, scene.device), 1.0)
     return torch.cat(
         [
             scene.center.T,
@@ -599,20 +612,9 @@ def _check_launch(s0, rng):
         raise ValueError(f"unknown rng {rng!r}")
 
 
-_LIGHTS: Dict[Tuple, torch.Tensor] = {}
-
-
 def light_list(light_indices, device) -> torch.Tensor:
-    """The int32 light list on ``device``, copied there once per (light
-    indices, device) and kept (the copy would stall every launch; the list
-    is the tuple's value, so an edited scene's new tuple gets its own)."""
-    key = (tuple(light_indices), str(device))
-    lights = _LIGHTS.get(key)
-    if lights is None:
-        if len(_LIGHTS) >= 32:
-            _LIGHTS.pop(next(iter(_LIGHTS)))
-        lights = _LIGHTS[key] = torch.tensor(key[0], dtype=torch.int32, device=device)
-    return lights
+    """The int32 light list on ``device`` (``device_copy``)."""
+    return device_copy(light_indices, torch.int32, device)
 
 
 def _lights_and_outputs(light_indices, s0, s1, acc):

@@ -43,7 +43,8 @@ FAULTS = {
     "mirror: no normal term of the reflected direction": (
         "g_n = g_n - (2.0f * h.dp) * g_dn;", "(void)h.dp;"),
     "hit distance: the entry root's sign on every hit": (
-        "const float sgn_sq = (b - sq) > kEps ? -1.0f : 1.0f;", "const float sgn_sq = -1.0f;"),
+        "const float sgn_sq = Rn::sub(qd.b, qd.sq) > kEps ? -1.0f : 1.0f;",
+        "const float sgn_sq = -1.0f;"),
 }
 UNEDITED = "unedited"
 SIZE = 512
