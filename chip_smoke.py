@@ -21,9 +21,12 @@
 4s. the seed kernel (csrc/seed_kernel.cu) bitwise against numpy's draw at
    512x512 on seeds 0, 125, 2425 and 2508 (the last three reject a word),
    mwc and counter, K1 and K2 layouts, whole and in 8 shards; its plain
-   version on the card bitwise; an overflowing rejection list raises; its
-   device time, ``init_pt_state`` on both routes, the plain version's time
-   and the bytes bound;
+   version on the card bitwise; the tail past the pass at slack 0 (seeds
+   125, 2425, 2508, both layouts, whole and in 8 shards) bitwise; no host
+   sync in ``seed_lanes`` or ``init_pt_state`` (CUDA sync check "error");
+   its device time by the design's passes, the wrapper's time,
+   ``init_pt_state`` on both routes, the plain version's time and the
+   bytes bound;
 5. K2 (csrc/pt_kernel.cu, the blocked, culled sweep) against the plain
    version on ``complex`` (783 spheres) at 512x512, 1 spp, PT/mwc and
    PT/counter; cull on against cull off, bitwise, at 512x512, 1 spp;
@@ -276,6 +279,9 @@ PIXEL_BOUND_PCT = {("light emission r", False): 0.1, ("light emission r", True):
 # The seed kernel's phase: seeds checked bitwise against numpy, the three
 # of them below 2600 whose first 2 * 512^2 draws reject a word included.
 SEED_SEEDS = (0, 125, 2425, 2508)
+# Seeds whose first 2 * 512^2 words hold one rejection: at slack 0 their
+# last draw comes from the seed kernel's tail.
+SEED_TAIL_SEEDS = (125, 2425, 2508)
 
 # Diagnostic splits (one line per kernel): K3's frame at (trace_depth,
 # supersample), room 800x600; K2 at (max_depth, integrator), complex783
@@ -895,12 +901,17 @@ def seed_section():
     """Phase [4s]: the seed kernel (csrc/seed_kernel.cu) bitwise against
     numpy's draw (``init_pt_state_host``) at WIDTH x HEIGHT on SEED_SEEDS,
     mwc and counter, in K1's and K2's layouts and split in SHARDS shards of
-    the ``tile_multiple=SHARDS`` layouts; the plain version on the card
-    bitwise too; the list's overflow raising on the card; then its device
-    time (``queued_ms``: no profiler session, which would leave K5's later
-    sessions without events), the host time of ``init_pt_state`` on both
-    routes, the plain version's time and the bytes bound. The launches are
-    those of the Cornell main path (phase 3)."""
+    the ``tile_multiple=SHARDS`` layouts; the same at slack 0 on the seeds
+    that reject a word (their last draw found by the pass's tail); the
+    plain version on the card bitwise too; ``seed_lanes`` and
+    ``init_pt_state`` under the CUDA sync check ("error"); then its device
+    time by the design's passes (``queued_ms``: no profiler session, which
+    would leave K5's later sessions without events): K1's layout (the one
+    pass), K2's (the pass into a flat scratch and its gather), the tail at
+    slack 0, the counter keys; the wrapper by CUDA events, the host time of
+    ``init_pt_state`` on both routes, the plain version's time and the
+    bytes bound. The launches are those of the Cornell main path (phase
+    3)."""
     import torch
 
     from se195_raytracer_tpu_torch.core.config import RenderConfig
@@ -909,58 +920,73 @@ def seed_section():
 
     n = WIDTH * HEIGHT
     print(f"[4s] seed kernel against numpy's draw: {WIDTH}x{HEIGHT}, seeds {SEED_SEEDS}, mwc "
-          f"and counter, K1 and K2 layouts, whole and in {SHARDS} shards")
+          f"and counter, K1 and K2 layouts, whole and in {SHARDS} shards; slack 0 on "
+          f"{SEED_TAIL_SEEDS}")
     worst, words = 0, 0
-    for seed in SEED_SEEDS:
-        for rng in ("mwc", "counter"):
-            cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=1, seed=seed, rng=rng)
-            for blocked in (False, True):
-                for tm in (1, SHARDS):
-                    want = ptk.init_pt_state_host(cfg, "cpu", blocked, tm)[:2]
-                    if tm == 1:
-                        got = ptk.init_pt_state(cfg, "cuda", blocked)[:2]
-                    else:
-                        rp, pix_np, _ = ptk.ray_layout(WIDTH, HEIGHT, blocked, tm)
-                        per = rp // tm
-                        parts = [sk.seed_lanes(rng, seed, n, device="cuda", **(
-                            dict(pix=torch.from_numpy(pix_np[k * per:(k + 1) * per]).cuda())
-                            if blocked else dict(lanes=per, lane_offset=k * per)))
-                            for k in range(tm)]
-                        got = [torch.cat([p[i] for p in parts]) for i in (0, 1)]
-                    for g, w in zip(got, want):
-                        g = g.cpu()
-                        diff = (g.to(torch.int64) - w.to(torch.int64)).abs().max().item()
-                        worst = max(worst, diff)
-                        words += g.numel()
-                        check(torch.equal(g, w), f"seed {seed} {rng} {'K2' if blocked else 'K1'} "
-                              f"layout, tile_multiple {tm}: the kernel differs from numpy")
+    cases = [(seed, rng, sk.SLACK) for seed in SEED_SEEDS for rng in ("mwc", "counter")]
+    cases += [(seed, "mwc", 0) for seed in SEED_TAIL_SEEDS]
+    for seed, rng, slack in cases:
+        cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=1, seed=seed, rng=rng)
+        for blocked in (False, True):
+            for tm in (1, SHARDS):
+                want = ptk.init_pt_state_host(cfg, "cpu", blocked, tm)[:2]
+                rp, pix_np, _ = ptk.ray_layout(WIDTH, HEIGHT, blocked, tm)
+                if tm == 1 and slack == sk.SLACK:
+                    got = ptk.init_pt_state(cfg, "cuda", blocked)[:2]
+                else:
+                    per = rp // tm
+                    parts = [sk.seed_lanes(rng, seed, n, device="cuda", slack=slack, **(
+                        dict(pix=torch.from_numpy(pix_np[k * per:(k + 1) * per]).cuda())
+                        if blocked else dict(lanes=per, lane_offset=k * per)))
+                        for k in range(tm)]
+                    got = [torch.cat([p[i] for p in parts]) for i in (0, 1)]
+                for g, w in zip(got, want):
+                    g = g.cpu()
+                    diff = (g.to(torch.int64) - w.to(torch.int64)).abs().max().item()
+                    worst = max(worst, diff)
+                    words += g.numel()
+                    check(torch.equal(g, w), f"seed {seed} {rng} slack {slack} "
+                          f"{'K2' if blocked else 'K1'} layout, tile_multiple {tm}: the kernel "
+                          "differs from numpy")
     rp = ptk.ray_layout(WIDTH, HEIGHT)[0]
-    for seed in (0, 125):
-        plain = sk.seed_lanes_reference("mwc", seed, n, rp, device="cuda")
-        kern = sk.seed_lanes("mwc", seed, n, rp, device="cuda")
+    for seed, slack in ((0, sk.SLACK), (125, sk.SLACK), (125, 0)):
+        plain = sk.seed_lanes_reference("mwc", seed, n, rp, device="cuda", slack=slack)
+        kern = sk.seed_lanes("mwc", seed, n, rp, device="cuda", slack=slack)
         check(all(bool(torch.equal(a, b)) for a, b in zip(plain, kern)),
-              f"seed {seed}: the plain version on the card differs from the kernel")
-    try:
-        sk.seed_lanes("mwc", 125, n, 8, device="cuda", capacity=0)
-        raised = False
-    except RuntimeError as e:
-        raised = "more than the list holds" in str(e)
-    check(raised, "seed 125 with a rejection list of 0 did not raise")
-    sk.seed_lanes("mwc", 125, n, 8, device="cuda", capacity=1)
+              f"seed {seed}, slack {slack}: the plain version on the card differs from the kernel")
+    # No host sync in a seeding: the lane tables are made (copied) first.
+    synced = []
+    for rng in ("mwc", "counter"):
+        for blocked in (False, True):
+            cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=1, seed=125, rng=rng)
+            ptk.init_pt_state(cfg, "cuda", blocked)
+            pix = ptk.lane_tables(WIDTH, HEIGHT, blocked, 1, "cuda")[0]
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                ptk.init_pt_state(cfg, "cuda", blocked)
+                sk.seed_lanes(rng, 125, n, rp, pix=pix, device="cuda", slack=0)
+                synced.append(f"{rng} {'K2' if blocked else 'K1'}")
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
     print(f"  {words} words bitwise numpy's (max |diff| {worst}); the plain version on the card "
-          "bitwise the kernel (seeds 0, 125); an overflowing list raises")
+          f"bitwise the kernel (seeds 0, 125; 125 at slack 0); no host sync in seed_lanes or "
+          f"init_pt_state ({', '.join(synced)})")
 
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=1, seed=SEED)
     dev = torch.device("cuda")
-    # The launches alone (the count not read), queued behind a sleep: the
-    # memset, scan and draw of a seeding; the memset and scan alone (no
-    # lanes); the counter keys.
+    # The launches alone, queued behind a sleep: K1's layout (the one
+    # pass); K2's (the pass into a flat scratch, and the gather); the tail
+    # at slack 0 (seed 125's last draw); the counter keys.
     kernel_ms, kernel_all = queued_ms(
-        lambda: sk._launch("mwc", SEED, n, rp, None, 0, dev, sk.CAPACITY))
-    scan_ms, _ = queued_ms(lambda: sk._launch("mwc", SEED, n, 0, None, 0, dev, sk.CAPACITY))
-    draw_ms = kernel_ms - scan_ms
-    counter_ms, _ = queued_ms(
-        lambda: sk._launch("counter", SEED, n, rp, None, 0, dev, sk.CAPACITY))
+        lambda: sk._launch("mwc", SEED, n, rp, None, 0, dev, sk.SLACK))
+    pix2 = ptk.lane_tables(WIDTH, HEIGHT, True, 1, "cuda")[0]
+    k2_ms, _ = queued_ms(
+        lambda: sk._launch("mwc", SEED, n, pix2.shape[0], pix2, 0, dev, sk.SLACK))
+    tail_ms, _ = queued_ms(lambda: sk._launch("mwc", 125, n, rp, None, 0, dev, 0))
+    no_tail_ms, _ = queued_ms(lambda: sk._launch("mwc", 125, n, rp, None, 0, dev, sk.SLACK))
+    counter_ms, _ = queued_ms(lambda: sk._launch("counter", SEED, n, rp, None, 0, dev, sk.SLACK))
     event_ms, event_all = median_ms(lambda: sk.seed_lanes("mwc", SEED, n, rp, device="cuda"))
     host = {}
     for blocked in (False, True):
@@ -972,11 +998,13 @@ def seed_section():
         "mwc", SEED, n, rp, device="cuda"), reps=3)
     nbytes = 8 * rp
     bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    print(f"  mwc at {rp} lanes: device time {kernel_ms:.5f} ms a seeding (reps "
-          f"{['%.5f' % t for t in kernel_all]}; memset and scan {scan_ms:.5f}, draw "
-          f"{draw_ms:.5f}); CUDA events around one call of the wrapper, its one-word read "
-          f"included, {event_ms:.5f} ms (reps {['%.5f' % t for t in event_all]}); counter keys "
-          f"{counter_ms:.5f} ms")
+    print(f"  mwc at {rp} lanes, device time a seeding: K1's layout (one pass) {kernel_ms:.5f} ms "
+          f"(reps {['%.5f' % t for t in kernel_all]}); K2's layout, the pass into a flat scratch "
+          f"and the gather {k2_ms:.5f}; seed 125 at slack 0 (the tail) {tail_ms:.5f} against "
+          f"{no_tail_ms:.5f} at slack {sk.SLACK}; "
+          f"counter keys {counter_ms:.5f}")
+    print(f"  the wrapper (CUDA events around one call, nothing read back) {event_ms:.5f} ms "
+          f"(reps {['%.5f' % t for t in event_all]})")
     for key, v in host.items():
         print(f"  init_pt_state, {key} layout (host clock): seed kernel {v['kernel_route_ms']:.4f} "
               f"ms, numpy's route {v['numpy_route_ms']:.4f} ms "
@@ -998,10 +1026,12 @@ def seed_section():
         "max_abs_err": worst,
         "words_compared": words,
         "ms": kernel_ms,
-        "scan_ms": scan_ms,
-        "draw_ms": draw_ms,
+        "k2_flat_gather_ms": k2_ms,
+        "tail_slack0_ms": tail_ms,
+        "no_tail_ms": no_tail_ms,
         "event_ms": event_ms,
         "counter_ms": counter_ms,
+        "no_host_sync": synced,
         "init_pt_state_host_ms": host,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -3042,7 +3072,8 @@ TEXREC_GRAD_RTOL = 1e-5
 def taps_section():
     """Phase T1: K3's tap entry (``whitted_taps_cuda``) against the plain
     version on the card, bitwise, on room and grid at 800x600 3x3 for
-    hit_bias 0 and 0.005; each tap's ms (CUDA events) on room beside its
+    hit_bias 0 and 0.005; each tap's ms on room (one call by CUDA events,
+    the wrapper included; and its device time, ``queued_ms``) beside its
     bound: one nearest sweep a ray, and for ``shade`` the lights of the
     lanes that hit a non-light and their shadow tests (the plain version's
     count), at K3's op counts."""
@@ -3088,12 +3119,15 @@ def taps_section():
     per_tap = {}
     for tap in W.TAPS:
         ms, reps = median_ms(lambda: wk.whitted_taps_cuda(scene, tiles, tap=tap))
+        dev_ms, _ = queued_ms(lambda: wk.whitted_taps_cuda(scene, tiles, tap=tap), n=20)
         print(f"  tap {tap} (room, hit_bias 0): {ms:.4f} ms (reps "
-              f"{['%.4f' % t for t in reps]}), {rays / ms * 1e3:.4g} rays/s")
+              f"{['%.4f' % t for t in reps]}), {rays / ms * 1e3:.4g} rays/s; device time "
+              f"{dev_ms:.4f} ms")
         bound_ms, bound_by = bound(shade_ops if tap == "shade" else sweep, nbytes, ms,
                                    f"tap {tap}")
-        per_tap[tap] = {"ms": ms, "reps_ms": reps, "bound_ms": bound_ms, "bound_by": bound_by,
-                        "share_of_bound": bound_ms / ms}
+        per_tap[tap] = {"ms": ms, "reps_ms": reps, "device_ms": dev_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+                        "share_of_bound_device": bound_ms / dev_ms}
     print(f"  shade tap work: {lit} rays hit a non-light, {work['shadow_tests']} shadow tests")
     return {"differing_rays": differing, "launches": launches, "per_tap": per_tap,
             "lit_rays": lit, "shadow_tests": work["shadow_tests"]}
@@ -3314,6 +3348,7 @@ def main(argv=None) -> int:
     kernels[2]["tap_replaces"] = ("se195_raytracer_tpu/kernels/whitted_kernel.py:128, :356-370, "
                                   ":505-532")
     kernels[2]["taps"] = taps["per_tap"]
+    kernels[2]["taps_designed_in"] = designed_in("K3 taps")
     print(f"  (phase T {time.perf_counter() - t:.1f} s)")
 
     print(card)

@@ -541,49 +541,115 @@ whitted_frame_kernel(const float* __restrict__ table,
   }
 }
 
+// The taps' scene load: the [kRows, n] table repacked into the records of
+// Layout, as load_scene does, but with the light and occluder lists handed
+// in (lists: the nl light indices, then the no occluders in load_scene's
+// order; per-scene constants that the wrapper makes once), so every thread
+// copies and none walks the table alone. Ends with the block synchronised.
+__device__ Scene load_tap_scene(const float* t, const int* light, const int* lists, int n,
+                                int nl, int no, float bias, unsigned char* smem,
+                                const Layout& L) {
+  float4* geom = reinterpret_cast<float4*>(smem + L.geom);
+  float4* col = reinterpret_cast<float4*>(smem + L.col);
+  float4* mat = reinterpret_cast<float4*>(smem + L.mat);
+  float4* lpos = reinterpret_cast<float4*>(smem + L.lpos);
+  float4* lcol = reinterpret_cast<float4*>(smem + L.lcol);
+  float* rrad = reinterpret_cast<float*>(smem + L.rrad);
+  int* kind = reinterpret_cast<int*>(smem + L.kind);
+  int* occ = reinterpret_cast<int*>(smem + L.occ);
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    const bool plane = t[j] == 0.0f;
+    geom[j] = plane ? make_float4(t[n + j], t[2 * n + j], t[3 * n + j], t[4 * n + j])
+                    : make_float4(t[5 * n + j], t[6 * n + j], t[7 * n + j],
+                                  t[8 * n + j]);
+    col[j] = make_float4(t[10 * n + j], t[11 * n + j], t[12 * n + j],
+                         t[13 * n + j]);
+    mat[j] = make_float4(t[14 * n + j], t[15 * n + j], t[16 * n + j],
+                         t[17 * n + j]);
+    rrad[j] = t[9 * n + j];
+    kind[j] = (plane ? kPlane : 0) | (light[j] ? kLight : 0);
+  }
+  for (int k = threadIdx.x; k < nl; k += blockDim.x) {
+    const int j = lists[k];
+    lpos[k] = make_float4(t[5 * n + j], t[6 * n + j], t[7 * n + j],
+                          t[j] == 0.0f ? 1.0f : 0.0f);
+    lcol[k] = make_float4(t[10 * n + j], t[11 * n + j], t[12 * n + j], 0.0f);
+  }
+  for (int k = threadIdx.x; k < no; k += blockDim.x) occ[k] = lists[nl + k];
+  __syncthreads();
+  return Scene{geom, col, mat, lpos, lcol, rrad, kind, occ, n, nl, no, bias};
+}
+
 // The debug taps (whitted_kernel.py:356-370, the reference's DEBUGGING
 // printf, raytracer_kernel.cl:1-6): instead of the tree, one triple per
 // explicit ray into out [3, rp]. kTapTres: the nearest fold's raw distance
 // (FLT_MAX on a miss), its result and a plane flag; kTapAttr: the winner's
 // red, diffuse factor and light flag (0 on a miss); kTapShade: the local
-// shade color of the primary hit (0 on a miss). A debug path, not tuned.
+// shade color of the primary hit (0 on a miss).
+//
+// A persistent grid: as many blocks as the card holds at once
+// (whitted_taps_cuda sizes it by the occupancy calculator), each loading
+// the scene once, not once for every 256 rays, with every thread copying
+// (the lists come from the wrapper). The blocks take the rays kThreads at a
+// time from a counter (work[0]), so a block that drew cheap rays takes
+// more: kTapShade's work per ray is very uneven, and a fixed stride over
+// the rays measured 7% slower there (room, 4.32 M rays). The last block out
+// (work[1]) sets both words back to 0 for the next launch on the stream.
+// The work per ray is K3's nearest fold and, for kTapShade, its local
+// shading with the shadow tests; each ray is read once (24 B) and its
+// triple written once (12 B), coalesced.
 enum Tap { kTapTres = 0, kTapAttr = 1, kTapShade = 2 };
 
 template <int kTap>
 __global__ void __launch_bounds__(kThreads)
 whitted_taps_kernel(const float* __restrict__ table,
-                    const int* __restrict__ light, int n, float bias,
+                    const int* __restrict__ light, const int* __restrict__ lists,
+                    int n, int nl, int no, float bias,
                     const float* __restrict__ rays, float* __restrict__ out,
-                    int rp) {
+                    int rp, unsigned int* work) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L(n, 0);
-  const Scene s = load_scene(table, light, n, bias, smem, L);
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= rp) return;
-  const float ox = rays[i], oy = rays[rp + i], oz = rays[2 * rp + i];
-  const float dx = rays[3 * rp + i], dy = rays[4 * rp + i],
-              dz = rays[5 * rp + i];
-  float cumu, res;
-  const int idx = nearest(s, ox, oy, oz, dx, dy, dz, cumu, res);
-  const bool hit = idx >= 0;
-  float a = 0.0f, b = 0.0f, c = 0.0f;
-  if (kTap == kTapTres) {
-    a = cumu;
-    b = res;
-    c = hit && (s.kind[idx] & kPlane) ? 1.0f : 0.0f;
-  } else if (hit && kTap == kTapAttr) {
-    a = s.col[idx].x;
-    b = s.mat[idx].x;
-    c = (s.kind[idx] & kLight) ? 1.0f : 0.0f;
-  } else if (hit) {
-    const float dist = fminf(cumu, kMaxDist);
-    float nx, ny, nz;
-    local_shade(s, idx, ox + dx * dist, oy + dy * dist, oz + dz * dist, dx,
-                dy, dz, nx, ny, nz, a, b, c);
+  const Scene s = load_tap_scene(table, light, lists, n, nl, no, bias, smem, L);
+  // Two slots for the block's chunk (the counts words, which the lists
+  // make free): thread 0 writes one while the other is still being read.
+  int* chunk = reinterpret_cast<int*>(smem + L.counts);
+  for (int k = 0;; ++k) {
+    if (threadIdx.x == 0) chunk[k & 1] = int(atomicAdd(work, 1u));
+    __syncthreads();
+    const int first = chunk[k & 1] * kThreads;
+    if (first >= rp) break;
+    const int i = first + threadIdx.x;
+    if (i >= rp) continue;
+    const float ox = rays[i], oy = rays[rp + i], oz = rays[2 * rp + i];
+    const float dx = rays[3 * rp + i], dy = rays[4 * rp + i],
+                dz = rays[5 * rp + i];
+    float cumu, res;
+    const int idx = nearest(s, ox, oy, oz, dx, dy, dz, cumu, res);
+    const bool hit = idx >= 0;
+    float a = 0.0f, b = 0.0f, c = 0.0f;
+    if (kTap == kTapTres) {
+      a = cumu;
+      b = res;
+      c = hit && (s.kind[idx] & kPlane) ? 1.0f : 0.0f;
+    } else if (hit && kTap == kTapAttr) {
+      a = s.col[idx].x;
+      b = s.mat[idx].x;
+      c = (s.kind[idx] & kLight) ? 1.0f : 0.0f;
+    } else if (hit) {
+      const float dist = fminf(cumu, kMaxDist);
+      float nx, ny, nz;
+      local_shade(s, idx, ox + dx * dist, oy + dy * dist, oz + dz * dist, dx,
+                  dy, dz, nx, ny, nz, a, b, c);
+    }
+    out[i] = a;
+    out[rp + i] = b;
+    out[2 * rp + i] = c;
   }
-  out[i] = a;
-  out[rp + i] = b;
-  out[2 * rp + i] = c;
+  // Every block has drawn its last chunk before it counts itself out.
+  if (threadIdx.x == 0 && atomicAdd(work + 1, 1u) == gridDim.x - 1) {
+    work[0] = 0u;
+    work[1] = 0u;
+  }
 }
 
 // A block's dynamic shared memory without the kernel's opt-in.
@@ -642,22 +708,37 @@ extern "C" int whitted_frame_cuda(const float* table, const int* light, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// tap: kTapTres, kTapAttr or kTapShade; rays [6, rp] -> out [3, rp]. Returns
+// tap: kTapTres, kTapAttr or kTapShade; lists: [nl + no] int32, the light
+// indices and the occluders in load_scene's order; rays [6, rp] -> out
+// [3, rp]; work: two uint32 words, 0 before the first launch and left 0 by
+// each (one pair a stream: launches that share it run in order). The grid:
+// the blocks the card holds at once, at most one a 256 rays. Returns
 // cudaErrorInvalidValue for another tap.
 extern "C" int whitted_taps_cuda(const float* table, const int* light, int n,
-                                 float bias, int tap, const float* rays,
-                                 float* out, int rp, void* stream) {
-  void (*kernel)(const float*, const int*, int, float, const float*, float*,
-                 int) = tap == kTapTres    ? whitted_taps_kernel<kTapTres>
-                        : tap == kTapAttr  ? whitted_taps_kernel<kTapAttr>
-                        : tap == kTapShade ? whitted_taps_kernel<kTapShade>
-                                           : nullptr;
-  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+                                 float bias, const int* lists, int nl, int no, int tap,
+                                 const float* rays, float* out, int rp, unsigned int* work,
+                                 void* stream) {
+  using TapKernel = void (*)(const float*, const int*, const int*, int, int, int, float,
+                             const float*, float*, int, unsigned int*);
+  const TapKernel kernel = tap == kTapTres    ? whitted_taps_kernel<kTapTres>
+                           : tap == kTapAttr  ? whitted_taps_kernel<kTapAttr>
+                           : tap == kTapShade ? whitted_taps_kernel<kTapShade>
+                                              : nullptr;
+  if (kernel == nullptr || nl < 0 || no < 0 || nl + no > n)
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = Layout(n, 0).total;
-  const cudaError_t e = allow_smem(kernel, smem);
+  cudaError_t e = allow_smem(kernel, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int blocks = (rp + kThreads - 1) / kThreads;
+  const int needed = (rp + kThreads - 1) / kThreads;
+  const int resident = sms * (per_sm > 0 ? per_sm : 1);
+  const int blocks = needed < resident ? needed : resident;
+  if (blocks == 0) return static_cast<int>(cudaSuccess);
   kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      table, light, n, bias, rays, out, rp);
+      table, light, lists, n, nl, no, bias, rays, out, rp, work);
   return static_cast<int>(cudaGetLastError());
 }

@@ -191,8 +191,6 @@ def pt_backward_cuda(scene: Scene, basis: CameraBasis, config: RenderConfig,
                            device=dev)
     out = torch.empty((grad_size(n),), dtype=torch.float32, device=dev)
     img = torch.empty((lanes, 3), dtype=torch.float32, device=dev) if image else None
-    # Seeded last: the seeding reads one word back, and what follows it on
-    # the host delays the launch.
     s0, s1 = seed_lanes(config.rng, config.seed, config.width * config.height, lanes,
                         lane_offset=lo, device=dev)
     err = lib.pt_backward_cuda(

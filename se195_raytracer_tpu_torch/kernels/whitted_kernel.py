@@ -10,7 +10,10 @@ finished [H, W, 3] frame in 0..255 (twin of ``whitted_frame_pallas``),
 one thread per subsample ray, each block summing the subsamples of its
 ``pixels_per_block`` pixels in the order of ``reduce_subsamples``, and
 ``whitted_taps_cuda`` emits a debug tap of the primary rays in place of
-the tree (twin of ``whitted_trace_pallas_padded(debug_tap=...)``).
+the tree (twin of ``whitted_trace_pallas_padded(debug_tap=...)``), on a
+persistent grid that loads the scene once a block and takes the rays from
+a counter, its light and occluder lists made here once per scene
+(``tap_lists``).
 Tensors on the CPU take the plain version, ``models/whitted.py``
 (``whitted_trace``, ``render_whitted_scene`` and ``whitted_taps``), which
 is also what the tests and ``chip_smoke.py`` hold the kernel against. Each
@@ -26,7 +29,7 @@ primitive; the light flags go beside it.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -99,21 +102,50 @@ def pack_whitted_scene(scene: WhittedScene) -> torch.Tensor:
     ).contiguous()
 
 
+def tap_lists(ptype, is_light) -> Tuple[list, int, int]:
+    """(lists, nl, no): the light indices, then the occluders (the
+    non-light primitives, spheres then planes, each by index), the order in
+    which the kernel's ``load_scene`` lists them for K3; the tap kernel
+    takes them from here."""
+    lights = [j for j, lit in enumerate(is_light) if lit]
+    spheres = [j for j, lit in enumerate(is_light) if not lit and ptype[j] != 0]
+    planes = [j for j, lit in enumerate(is_light) if not lit and ptype[j] == 0]
+    return lights + spheres + planes, len(lights), len(spheres) + len(planes)
+
+
 _PACKED = {}
 
 
 def _packed(scene: WhittedScene):
-    """(table, light flags, default camera row) on the scene's device, made
-    once per scene: the copies to the device would otherwise stall each
-    launch."""
+    """(table, light flags, default camera row, the taps' lists as a tensor,
+    nl, no) on the scene's device, made once per scene: the copies to the
+    device would otherwise stall each launch."""
     hit = _PACKED.get(id(scene))
     if hit is None or hit[0] is not scene:
         if len(_PACKED) >= 8:
             _PACKED.pop(next(iter(_PACKED)))
         light = torch.tensor(scene.is_light, dtype=torch.int32, device=scene.device)
         cam = torch.from_numpy(whitted_camera_row()).to(scene.device)
-        hit = _PACKED[id(scene)] = (scene, pack_whitted_scene(scene), light, cam)
+        lists, nl, no = tap_lists(scene.ptype, scene.is_light)
+        lists = torch.tensor(lists or [0], dtype=torch.int32, device=scene.device)
+        hit = _PACKED[id(scene)] = (scene, pack_whitted_scene(scene), light, cam, lists, nl, no)
     return hit[1:]
+
+
+_TAP_WORK: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _tap_work(device: torch.device, stream: int) -> torch.Tensor:
+    """The tap kernel's two work words (its ray counter and its count of
+    finished blocks) for ``stream``: made 0 once, and each launch leaves
+    them 0; launches on one stream run in order, so they share them."""
+    key = (device.index, stream)
+    work = _TAP_WORK.get(key)
+    if work is None:
+        if len(_TAP_WORK) >= 16:
+            _TAP_WORK.pop(next(iter(_TAP_WORK)))
+        work = _TAP_WORK[key] = torch.zeros((2,), dtype=torch.int32, device=device)
+    return work
 
 
 def _scene_args(scene: WhittedScene, trace_depth: int, hit_bias: float, color_floats: int):
@@ -121,7 +153,7 @@ def _scene_args(scene: WhittedScene, trace_depth: int, hit_bias: float, color_fl
         raise ValueError(f"trace_depth {trace_depth} outside 0..{MAX_TRACE_DEPTH}")
     n = scene.num_prims
     shared_memory_bytes(n, color_floats)
-    table, light, _ = _packed(scene)
+    table, light = _packed(scene)[:2]
     return (table.data_ptr(), light.data_ptr(), n, float(np.float32(hit_bias)), int(trace_depth))
 
 
@@ -190,10 +222,13 @@ def whitted_taps_cuda(
         return out.T.reshape(3, rays.shape[1], LANES)
     rays = rays.contiguous()
     args = _scene_args(scene, 0, hit_bias, 0)[:4]
+    lists, nl, no = _packed(scene)[3:]
     out = torch.empty((3, rays.shape[1], LANES), dtype=torch.float32, device=rays.device)
     lib = _kernel_lib()
-    err = lib.whitted_taps_cuda(*args, TAPS.index(tap), rays.data_ptr(), out.data_ptr(), rp,
-                                torch.cuda.current_stream(rays.device).cuda_stream)
+    stream = torch.cuda.current_stream(rays.device).cuda_stream
+    err = lib.whitted_taps_cuda(*args, lists.data_ptr(), nl, no, TAPS.index(tap),
+                                rays.data_ptr(), out.data_ptr(), rp,
+                                _tap_work(rays.device, stream).data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"whitted_taps_cuda launch failed: cudaError {err}")
     whitted_taps_cuda.launches += 1
@@ -291,7 +326,7 @@ def _kernel_lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.whitted_trace_cuda.argtypes = [p, p, i, f, i, p, p, i, p]
         lib.whitted_frame_cuda.argtypes = [p, p, i, f, i, p, i, i, i, f, f, f, f, f, p, p]
-        lib.whitted_taps_cuda.argtypes = [p, p, i, f, i, p, p, i, p]
+        lib.whitted_taps_cuda.argtypes = [p, p, i, f, p, i, i, i, p, p, i, p, p]
         for fn in (lib.whitted_trace_cuda, lib.whitted_frame_cuda, lib.whitted_taps_cuda):
             fn.restype = ctypes.c_int
     return lib

@@ -21,8 +21,11 @@ without the fusion pass (``compiler_options={"xla_disable_hlo_passes":
 rounded on its own, as the port does: the taps then agree bitwise, well
 inside the bars above.
 
+The tap kernel takes the scene's light and occluder lists from its wrapper
+(``tap_lists``), held here to the order of the kernel's own ``load_scene``.
+
 The JAX package is imported inside the tests that use it, so that the
-``cuda`` test runs on a GPU machine without JAX:
+``cuda`` tests run on a GPU machine without JAX:
 ``python -m pytest tests/test_torch_whitted_taps.py --noconftest -m cuda``."""
 
 import numpy as np
@@ -147,3 +150,85 @@ def test_tap_kernel_bitwise_on_cuda(name, hit_bias):
         flat = tiles.reshape(6, -1)
         plain = W.whitted_taps(ps, flat[0:3].T, flat[3:6].T, tap, hit_bias)
         assert torch.equal(got.reshape(3, -1).T, plain), tap
+
+
+def _load_scene_lists(ptype, is_light):
+    """The light and occluder lists as ``load_scene`` (csrc/whitted_kernel.cu)
+    builds them for K3: one pass over the primitives, a light to the light
+    list and a non-light sphere to the occluders, then a pass adding the
+    non-light planes."""
+    lights, occ = [], []
+    for j in range(len(ptype)):
+        if is_light[j]:
+            lights.append(j)
+        elif ptype[j] != 0:
+            occ.append(j)
+    occ += [j for j in range(len(ptype)) if not is_light[j] and ptype[j] == 0]
+    return lights + occ, len(lights), len(occ)
+
+
+@pytest.mark.parametrize("name", ["room", "grid", "mixed", "big"])
+def test_tap_lists_in_load_scene_order(name):
+    """Lights first by index, then the non-light spheres, then the non-light
+    planes, each by index: the order ``load_scene`` builds."""
+    if name in WHITTED_SCENES:
+        scene = WHITTED_SCENES[name]("cpu")
+        ptype, is_light = scene.ptype, scene.is_light
+    elif name == "mixed":  # a plane light and lights after occluders
+        ptype, is_light = [1, 0, 1, 0, 1, 1, 0], [False, True, False, False, True, False, False]
+    else:
+        scene = _big_scene("cpu")
+        ptype, is_light = scene.ptype, scene.is_light
+    got = wk.tap_lists(ptype, is_light)
+    assert got == _load_scene_lists(ptype, is_light)
+    lists, nl, no = got
+    assert sorted(lists) == list(range(len(ptype))) and nl + no == len(ptype)
+
+
+def _big_scene(device):
+    """Past 48 KB of a block's shared memory: grid's kind of room (3 planes,
+    2 lights, 3 spheres) and a 24 x 25 grid of small spheres, 608
+    primitives."""
+    from se195_raytracer_tpu_torch.scenes.whitted_scenes import WhittedSceneBuilder, _adders, _mat
+
+    b = WhittedSceneBuilder()
+    plane, sphere = _adders(b)
+    plane(_mat(0.4, 0.3, 0.3, 0.0, 0.0, 1.0, 1.0, 0.8), False, 0.0, 1.0, 0.0, 4.4)
+    sphere(_mat(0.7, 0.7, 1.0, 0.0, 1.0, 1.3, 0.2, 0.8), False, 2.0, 0.8, 3.0, 2.5)
+    sphere(_mat(0.4, 0.4, 0.4, 0.0, 0.0, 1.0, 0.0, 0.0), True, 0.0, 5.0, 5.0, 0.1)
+    sphere(_mat(0.6, 0.6, 0.8, 0.0, 0.0, 1.0, 0.0, 0.0), True, -3.0, 5.0, 1.0, 0.1)
+    sphere(_mat(1.0, 0.4, 0.4, 0.5, 0.0, 1.0, 0.2, 0.8), False, -1.5, -3.8, 1.0, 1.5)
+    plane(_mat(0.5, 0.3, 0.5, 0.0, 0.0, 1.0, 0.6, 0.0), False, 0.4, 0.0, -1.0, 12.0)
+    plane(_mat(0.4, 0.7, 0.7, 0.0, 0.0, 1.0, 0.5, 0.0), False, 0.0, -1.0, 0.0, 7.4)
+    sphere(_mat(0.7, 0.7, 1.0, 0.5, 0.0, 1.0, 0.1, 0.8), False, -5.5, -0.5, 7.0, 2.0)
+    for x in range(24):
+        for y in range(25):
+            sphere(_mat(0.3 + 0.02 * (x % 8), 1.0, 0.4, 0.2 * (y % 2), 0.0, 1.0, 0.6, 0.6),
+                   False, -4.2 + x * 0.35, -3.6 + y * 0.3, 10.0, 0.12)
+    scene = b.build(device)
+    assert scene.num_prims == 608 and wk.shared_memory_bytes(608) > 48 * 1024
+    return scene
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA device")
+@pytest.mark.parametrize("name", ["room", "big"])
+def test_tap_persistent_grid_bitwise_on_cuda(name):
+    """The persistent grid striding over more rays than the card holds
+    threads: 640 x 480 camera rays (307,200, in 300 tiles of 1,024: no
+    multiple of 33 tiles, so of no grid of 132 SMs x 256 threads), on room
+    and on a 608-primitive scene past 48 KB of shared memory; every tap
+    bitwise the plain ``whitted_taps``, one launch a tap."""
+    scene = WHITTED_SCENES[name]("cuda") if name == "room" else _big_scene("cuda")
+    o, d = W.whitted_camera_rays_device(640, 480, 1, device="cuda")
+    tiles = wk.rays_to_tiles(o, d)
+    assert tiles.shape[1] * 128 == 300 * 1024 and 300 % 33
+    flat = tiles.reshape(6, -1)
+    for tap in W.TAPS:
+        for hit_bias in (0.0, 0.005):
+            before = wk.whitted_taps_cuda.launches
+            got = wk.whitted_taps_cuda(scene, tiles, tap=tap, hit_bias=hit_bias)
+            torch.cuda.synchronize()
+            assert wk.whitted_taps_cuda.launches == before + 1
+            plain = W.whitted_taps(scene, flat[0:3].T, flat[3:6].T, tap, hit_bias)
+            assert torch.equal(got.reshape(3, -1).T, plain), (tap, hit_bias)

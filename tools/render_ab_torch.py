@@ -12,7 +12,8 @@ its kernels into that copy's ``_build/``. Each run times, median of REPS
 after a warm-up (host clock, synchronised, the image read back to the host):
 
 - ``init_pt_state`` at Cornell 512x512 (K1's layout) and complex783's
-  blocked layout;
+  blocked layout, and the seeding alone (``seed_lanes``): its kernels'
+  device time in one call (torch.profiler) and the call by CUDA events;
 - Cornell 512x512 x 8 spp through ``driver.render.render`` (K1);
 - complex783 512x512 x 8 spp through ``render`` (K2);
 - Cornell through ``render_cuda_sharded`` on 8 shards of cuda:0, and its
@@ -26,6 +27,10 @@ gradient step (``render_differentiable`` forward, the loss's backward to
 every leaf; host clock, synchronised); and, at spp 2, the card's idle share
 over the step (torch.profiler's device time against the step's time).
 
+Each run also hashes what it made (sha256 of the bytes): the Cornell and
+complex783 images, and with ``--grad`` K1b's gradient and replayed primal
+at each spp; the summary says whether every run made the same bytes.
+
 Prints one JSON line per run and, last, one summary line with each
 metric's medians over the two runs of each copy and new / old; ``--out``
 writes them to FILE too. Exits non-zero without a CUDA device.
@@ -34,6 +39,7 @@ writes them to FILE too. Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import statistics
@@ -63,6 +69,47 @@ def _ms(fn, reps=REPS):
     return statistics.median(times)
 
 
+def _sha256(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _event_ms(fn, reps=REPS):
+    """Median of one call timed with CUDA events, after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def _device_ms(fn, calls=20):
+    """The device time of the kernels ``fn`` launches, per call, over
+    ``calls`` calls under torch.profiler (CUDA activity only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+               if getattr(e, "device_type", None) is not None
+               and e.device_type.name != "CPU") / 1e3 / calls
+
+
 def worker(root: str) -> dict:
     """One run: import the package from ``root`` and time the cells."""
     sys.path.insert(0, os.path.abspath(root))
@@ -72,6 +119,7 @@ def worker(root: str) -> dict:
     from se195_raytracer_tpu_torch.core.config import RenderConfig
     from se195_raytracer_tpu_torch.driver.render import render
     from se195_raytracer_tpu_torch.kernels import pt_kernel as ptk
+    from se195_raytracer_tpu_torch.kernels.seed_kernel import seed_lanes
     from se195_raytracer_tpu_torch.parallel import render_sharded as rs
     from se195_raytracer_tpu_torch.parallel.mesh import make_mesh
     from se195_raytracer_tpu_torch.scenes.registry import get_scene
@@ -87,7 +135,16 @@ def worker(root: str) -> dict:
         scene, camera = spec.to_scene("cuda"), spec.to_camera("cuda")
         blocked = scene.num_spheres > ptk.UNROLL_MAX_SPHERES
         out[f"{name}_seed_ms"] = _ms(lambda: ptk.init_pt_state(cfg, "cuda", blocked))
+        rp = ptk.ray_layout(WIDTH, HEIGHT, blocked)[0]
+        pix = ptk.lane_tables(WIDTH, HEIGHT, blocked, 1, "cuda")[0]
+
+        def seeding():
+            seed_lanes("mwc", 0, WIDTH * HEIGHT, rp, pix=pix, device="cuda")
+
+        out[f"{name}_seeding_device_ms"] = _device_ms(seeding)
+        out[f"{name}_seeding_event_ms"] = _event_ms(seeding)
         out[f"{name}_e2e_ms"] = _ms(lambda: render(scene, camera, cfg)[0].cpu())
+        out[f"{name}_image_sha256"] = _sha256(render(scene, camera, cfg)[0])
         if name == "cornell":
             out["cornell_8shard_e2e_ms"] = _ms(
                 lambda: rs.render_cuda_sharded(scene, camera, cfg, mesh)[0].cpu())
@@ -129,6 +186,8 @@ def grad_worker(root: str) -> dict:
         def k1b():
             K.pt_backward_cuda(scene0, basis, cfg, cot)
 
+        out[f"k1b_spp{spp}_sha256"] = _sha256(*K.pt_backward_cuda(scene0, basis, cfg, cot,
+                                                                  image=True))
         k1b()
         times = []
         for _ in range(REPS):
@@ -204,6 +263,8 @@ def main(argv=None) -> int:
         print(json.dumps(line))
     keys = [k for k in runs[0] if k.endswith(("_ms", "_ratio"))]
     summary = {"card": card}
+    for k in (k for k in runs[0] if k.endswith("_sha256")):
+        summary[k] = {"same_in_every_run": len({r[k] for r in runs}) == 1}
     for k in keys:
         old = statistics.median(r[k] for r in runs if r["copy"] == "old")
         new = statistics.median(r[k] for r in runs if r["copy"] == "new")
