@@ -43,6 +43,7 @@ from se195_raytracer_tpu_torch.core.types import (
 )
 from se195_raytracer_tpu_torch.driver.render import _sample_once, pixel_coords
 from se195_raytracer_tpu_torch.kernels.seed_kernel import seed_lanes
+from se195_raytracer_tpu_torch.utils.profiling import span
 
 # The trainable leaves, by field name, in the order the kernel-forward
 # Function takes them.
@@ -187,7 +188,8 @@ class _KernelForward(torch.autograd.Function):
         center = ctx.saved_tensors[0]
         if (center.device.type == "cuda" and center.shape[0] <= UNROLL_MAX_SPHERES
                 and ctx.config.max_depth <= MAX_DEPTH):
-            return (*_k1b_backward(ctx, grad_out, needs), None, None, None, None)
+            with span("k1b.backward"):
+                return (*_k1b_backward(ctx, grad_out, needs), None, None, None, None)
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, needs)]
             scene = Scene(*leaves[:4], ctx.refl, ctx.light_indices)
@@ -201,7 +203,8 @@ class _KernelForward(torch.autograd.Function):
 def _k1b_backward(ctx, grad_out, needs):
     """The leaves' gradients by K1b: the scene's from its flat gradient, the
     camera's by the autograd of ``update_camera`` (about 20 ops on [3]
-    vectors) from the basis's."""
+    vectors) from the basis's; spans ``k1b.camera`` and ``k1b.launch``
+    (autograd's thread, inside ``k1b.backward``)."""
     from se195_raytracer_tpu_torch.kernels.pt_backward_kernel import (
         BASIS_FIELDS,
         pt_backward_cuda,
@@ -211,16 +214,17 @@ def _k1b_backward(ctx, grad_out, needs):
     center, radius, emission, color, orig, target = ctx.saved_tensors
     scene = Scene(center, radius, emission, color, ctx.refl, ctx.light_indices)
     cfg = ctx.config
-    with torch.enable_grad():
+    with span("k1b.camera"), torch.enable_grad():
         cam = [t.detach().requires_grad_(need) for t, need in zip((orig, target), needs[4:])]
         basis = update_camera(Camera(*cam), cfg.width, cfg.height)
     detached = CameraBasis(*(getattr(basis, k).detach() for k in BASIS_FIELDS))
-    g = unpack_grad(pt_backward_cuda(scene, detached, cfg, grad_out, ctx.pixels),
-                    center.shape[0])
+    with span("k1b.launch"):
+        flat = pt_backward_cuda(scene, detached, cfg, grad_out, ctx.pixels)
+    g = unpack_grad(flat, center.shape[0])
     out = [g[k] if need else None for k, need in zip(SCENE_LEAVES, needs)]
     wanted = [t for t in cam if t.requires_grad]
     if wanted:
-        with torch.enable_grad():
+        with span("k1b.camera"), torch.enable_grad():
             outs = [(getattr(basis, k), g[k]) for k in BASIS_FIELDS
                     if getattr(basis, k).requires_grad]
             cam_grads = iter(torch.autograd.grad([o for o, _ in outs], wanted,
@@ -275,17 +279,22 @@ def make_inverse_step(
     root, bias-corrected moments)."""
 
     def step(st: OptState) -> OptState:
-        trainable = split(st.scene, st.camera, param_filter)
-        opt = st.opt_state
-        if opt is None:
-            trainable = {k: v.detach().clone().requires_grad_(True) for k, v in trainable.items()}
-            opt = optimizer(trainable)
-        scene, camera = merge(st.scene, st.camera, trainable)
-        opt.zero_grad(set_to_none=True)
-        loss = l2_image_loss(scene, camera, target, config, device=device)
-        loss.backward()
-        opt.step()
-        return OptState(scene, camera, opt, loss.detach())
+        with span("opt.step"):
+            trainable = split(st.scene, st.camera, param_filter)
+            opt = st.opt_state
+            if opt is None:
+                trainable = {k: v.detach().clone().requires_grad_(True)
+                             for k, v in trainable.items()}
+                opt = optimizer(trainable)
+            scene, camera = merge(st.scene, st.camera, trainable)
+            opt.zero_grad(set_to_none=True)
+            with span("opt.forward"):
+                loss = l2_image_loss(scene, camera, target, config, device=device)
+            with span("opt.backward"):
+                loss.backward()
+            with span("opt.update"):
+                opt.step()
+            return OptState(scene, camera, opt, loss.detach())
 
     return step
 

@@ -52,6 +52,7 @@ from se195_raytracer_tpu_torch.kernels._guard import refuse_grad
 from se195_raytracer_tpu_torch.kernels.seed_kernel import seed_lanes
 from se195_raytracer_tpu_torch.models.smallpt import generate_camera_rays, radiance
 from se195_raytracer_tpu_torch.ops.intersect import sphere_intersect
+from se195_raytracer_tpu_torch.utils.profiling import span
 
 LANES = 128
 # Lanes are padded to whole 16 x 128 tiles, as in the JAX package, so the
@@ -500,17 +501,19 @@ def pt_multi_pass(
     if s0.device.type == "cpu":
         return pt_pass_reference(scene_tab, cam_tab, start_sample, s0, s1, acc,
                                  lane_offset=lane_offset, **kw)
-    _check_launch(s0, rng)
-    # K1's shared memory: a (center, radius) record per sphere and the table.
-    _check_cuda_inputs(scene_tab, cam_tab, s0, s1, acc, light_indices, 16 * scene_tab.shape[1])
-    lib = _kernel_lib()
-    lights, outs = _lights_and_outputs(light_indices, s0, s1, acc)
-    err = lib.pt_multi_pass_cuda(
-        scene_tab.data_ptr(), scene_tab.shape[1], lights.data_ptr(), len(light_indices),
-        cam_tab.data_ptr(), int(start_sample), int(num_samples),
-        s0.data_ptr(), s1.data_ptr(), acc.data_ptr(), *(t.data_ptr() for t in outs),
-        *_frame_args(s0, width, height, max_depth, direct_only, rng), int(lane_offset),
-    )
+    with span("pt.launch"):
+        _check_launch(s0, rng)
+        # K1's shared memory: a (center, radius) record per sphere and the table.
+        _check_cuda_inputs(scene_tab, cam_tab, s0, s1, acc, light_indices,
+                           16 * scene_tab.shape[1])
+        lib = _kernel_lib()
+        lights, outs = _lights_and_outputs(light_indices, s0, s1, acc)
+        err = lib.pt_multi_pass_cuda(
+            scene_tab.data_ptr(), scene_tab.shape[1], lights.data_ptr(), len(light_indices),
+            cam_tab.data_ptr(), int(start_sample), int(num_samples),
+            s0.data_ptr(), s1.data_ptr(), acc.data_ptr(), *(t.data_ptr() for t in outs),
+            *_frame_args(s0, width, height, max_depth, direct_only, rng), int(lane_offset),
+        )
     if err != 0:
         raise RuntimeError(f"pt_multi_pass_cuda launch failed: cudaError {err}")
     pt_multi_pass.launches += 1
@@ -557,24 +560,25 @@ def pt_blocked_pass(
         return pt_pass_reference(scene_tab, cam_tab, start_sample, s0, s1, acc, pix, **kw)
     _check_launch(s0, rng)
     halves, bounds, groups, rest, lights = _k2_tables(scene_tab, tuple(light_indices))
-    nb, ng = bounds.shape[1], groups.shape[1]
-    # K2's shared memory: a (center, radius) record per sphere and per half
-    # block, block and group bound.
-    _check_cuda_inputs(scene_tab, cam_tab, s0, s1, acc, light_indices,
-                       4 * (scene_tab.shape[1] + 3 * nb + ng))
-    if pix.device != s0.device or pix.dtype != torch.int32 or pix.shape != s0.shape:
-        raise ValueError(f"pix: need int32 [{s0.shape[0]}] on {s0.device}")
-    pix = pix.contiguous()
-    lib = _k2_lib()
-    outs = (torch.empty_like(s0), torch.empty_like(s1), torch.empty_like(acc))
-    err = lib.pt_blocked_pass_cuda(
-        scene_tab.data_ptr(), scene_tab.shape[1], halves.data_ptr(), bounds.data_ptr(), nb,
-        groups.data_ptr(), ng, rest.data_ptr(), int(cull),
-        pix.data_ptr(), lights.data_ptr(), len(light_indices),
-        cam_tab.data_ptr(), int(start_sample), int(num_samples),
-        s0.data_ptr(), s1.data_ptr(), acc.data_ptr(), *(t.data_ptr() for t in outs),
-        *_frame_args(s0, width, height, max_depth, direct_only, rng),
-    )
+    with span("pt.launch"):
+        nb, ng = bounds.shape[1], groups.shape[1]
+        # K2's shared memory: a (center, radius) record per sphere and per
+        # half block, block and group bound.
+        _check_cuda_inputs(scene_tab, cam_tab, s0, s1, acc, light_indices,
+                           4 * (scene_tab.shape[1] + 3 * nb + ng))
+        if pix.device != s0.device or pix.dtype != torch.int32 or pix.shape != s0.shape:
+            raise ValueError(f"pix: need int32 [{s0.shape[0]}] on {s0.device}")
+        pix = pix.contiguous()
+        lib = _k2_lib()
+        outs = (torch.empty_like(s0), torch.empty_like(s1), torch.empty_like(acc))
+        err = lib.pt_blocked_pass_cuda(
+            scene_tab.data_ptr(), scene_tab.shape[1], halves.data_ptr(), bounds.data_ptr(), nb,
+            groups.data_ptr(), ng, rest.data_ptr(), int(cull),
+            pix.data_ptr(), lights.data_ptr(), len(light_indices),
+            cam_tab.data_ptr(), int(start_sample), int(num_samples),
+            s0.data_ptr(), s1.data_ptr(), acc.data_ptr(), *(t.data_ptr() for t in outs),
+            *_frame_args(s0, width, height, max_depth, direct_only, rng),
+        )
     if err != 0:
         raise RuntimeError(f"pt_blocked_pass_cuda launch failed: cudaError {err}")
     pt_blocked_pass.launches += 1
@@ -592,17 +596,21 @@ def _k2_tables(scene_tab: torch.Tensor, light_indices: Tuple[int, ...]):
     scene table on its device, made once per table (held here, so its id
     stays unique; remade if the table was written to): the bounds are ~30
     small ops and the light list a copy to the device that would stall each
-    launch."""
-    key = id(scene_tab)
-    hit = _K2_TABLES.get(key)
-    if hit is None or hit[1] != scene_tab._version or hit[2] != light_indices:
-        if len(_K2_TABLES) >= 8:
-            _K2_TABLES.pop(next(iter(_K2_TABLES)))
-        lights = torch.tensor(light_indices, dtype=torch.int32, device=scene_tab.device)
-        hit = _K2_TABLES[key] = (scene_tab, scene_tab._version, light_indices,
-                                 half_bounds(scene_tab), block_bounds(scene_tab),
-                                 group_bounds(scene_tab), remainder_bound(scene_tab), lights)
-    return hit[3:]
+    launch. Spans ``pt.k2_tables`` the lookup and ``pt.k2_tables.build`` a
+    miss."""
+    with span("pt.k2_tables"):
+        key = id(scene_tab)
+        hit = _K2_TABLES.get(key)
+        if hit is None or hit[1] != scene_tab._version or hit[2] != light_indices:
+            with span("pt.k2_tables.build"):
+                if len(_K2_TABLES) >= 8:
+                    _K2_TABLES.pop(next(iter(_K2_TABLES)))
+                lights = torch.tensor(light_indices, dtype=torch.int32, device=scene_tab.device)
+                hit = _K2_TABLES[key] = (scene_tab, scene_tab._version, light_indices,
+                                         half_bounds(scene_tab), block_bounds(scene_tab),
+                                         group_bounds(scene_tab), remainder_bound(scene_tab),
+                                         lights)
+        return hit[3:]
 
 
 def _check_launch(s0, rng):
@@ -714,44 +722,58 @@ def render_cuda(
     ``pixels=(lo, hi)`` renders only the row-major pixels lo..hi-1, from
     the fresh seeds the whole frame gives them (K1 at lane offset lo, K2
     over pix = lo..hi-1), and returns their [hi - lo, 3] rows in place of
-    the image: the forward of a shard of a sharded differentiable render."""
+    the image: the forward of a shard of a sharded differentiable render.
+
+    Under a profiler session the call is a ``pt.render`` span holding
+    ``pt.seed``, ``pt.pack_scene``, ``pt.camera`` (``update_camera`` and
+    ``pack_camera``), K2's ``pt.k2_tables``, ``pt.launch`` and
+    ``pt.gather`` (``utils.profiling.span``)."""
     if config.soft_edges > 0.0:
         raise NotImplementedError(
             "soft_edges > 0: K1 and K2 implement the hard estimator; render the relaxed "
             "one with use_kernel=False")
     refuse_grad("render_cuda", scene, camera, None if state is None else state[2])
-    device = resolve_device(device)
-    scene, camera = scene.to(device), camera.to(device)
-    w, h = config.width, config.height
-    r = w * h
-    spp = config.spp if num_samples is None else num_samples
-    blocked = scene.num_spheres > UNROLL_MAX_SPHERES
-    lane_offset = 0
-    if pixels is None:
-        pix, inv = lane_tables(w, h, blocked, 1, device)
-        if state is None:
-            state = init_pt_state(config, device, blocked) + (0,)
-    else:
-        lo, hi = pixels
-        if state is not None or not 0 <= lo < hi <= r:
-            raise ValueError(f"pixels={pixels}: a range inside 0..{r}, rendered from fresh "
-                             "seeds (state=None)")
-        s0, s1 = seed_lanes(config.rng, config.seed, r, hi - lo, lane_offset=lo, device=device)
-        acc = torch.zeros((3, hi - lo), dtype=torch.float32, device=device)
-        state = (s0, s1, acc, 0)
-        pix = torch.arange(lo, hi, dtype=torch.int32, device=device) if blocked else None
-        lane_offset = 0 if blocked else lo
-    s0, s1, acc, start = state
+    with span("pt.render"):
+        device = resolve_device(device)
+        scene, camera = scene.to(device), camera.to(device)
+        w, h = config.width, config.height
+        r = w * h
+        spp = config.spp if num_samples is None else num_samples
+        blocked = scene.num_spheres > UNROLL_MAX_SPHERES
+        lane_offset = 0
+        if pixels is None:
+            pix, inv = lane_tables(w, h, blocked, 1, device)
+            if state is None:
+                with span("pt.seed"):
+                    state = init_pt_state(config, device, blocked) + (0,)
+        else:
+            lo, hi = pixels
+            if state is not None or not 0 <= lo < hi <= r:
+                raise ValueError(f"pixels={pixels}: a range inside 0..{r}, rendered from fresh "
+                                 "seeds (state=None)")
+            with span("pt.seed"):
+                s0, s1 = seed_lanes(config.rng, config.seed, r, hi - lo, lane_offset=lo,
+                                    device=device)
+                acc = torch.zeros((3, hi - lo), dtype=torch.float32, device=device)
+            state = (s0, s1, acc, 0)
+            pix = torch.arange(lo, hi, dtype=torch.int32, device=device) if blocked else None
+            lane_offset = 0 if blocked else lo
+        s0, s1, acc, start = state
+        with span("pt.pack_scene"):
+            scene_tab = pack_scene(scene)
+        with span("pt.camera"):
+            cam_tab = pack_camera(update_camera(camera, w, h))
 
-    s0, s1, acc = pt_multi_pass(
-        pack_scene(scene), pack_camera(update_camera(camera, w, h)), start, s0, s1, acc, pix,
-        num_samples=spp, width=w, height=h, max_depth=config.max_depth,
-        direct_only=config.integrator == "dl",
-        light_indices=scene.light_indices, rng=config.rng, lane_offset=lane_offset,
-    )
-    state = (s0, s1, acc, start + spp)
-    if pixels is not None:
-        return acc.T, state
-    flat = acc.reshape(3, -1)
-    flat = flat[:, inv] if blocked else flat[:, :r]
-    return flat.T.reshape(h, w, 3), state
+        s0, s1, acc = pt_multi_pass(
+            scene_tab, cam_tab, start, s0, s1, acc, pix,
+            num_samples=spp, width=w, height=h, max_depth=config.max_depth,
+            direct_only=config.integrator == "dl",
+            light_indices=scene.light_indices, rng=config.rng, lane_offset=lane_offset,
+        )
+        state = (s0, s1, acc, start + spp)
+        with span("pt.gather"):
+            if pixels is not None:
+                return acc.T, state
+            flat = acc.reshape(3, -1)
+            flat = flat[:, inv] if blocked else flat[:, :r]
+            return flat.T.reshape(h, w, 3), state

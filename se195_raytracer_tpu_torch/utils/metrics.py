@@ -1,19 +1,16 @@
-"""Structured metrics and topology logging (twin of
+"""Structured metrics and topology (twin of
 se195_raytracer_tpu/utils/metrics.py).
 
 Replaces the reference's observability surface: the stderr device
-inventory at startup (smallptGPU.cpp:236-459), the per-pass "Rendering
+inventory at startup (smallptGPU.cpp:236-459) and the per-pass "Rendering
 time ... Sample/sec" caption (smallptGPU.cpp:777-781, smallptCPU.cpp:126-129)
-and the mm:ss.mmm frame timers (raytracer.c:759-770) become structured
-dicts and a JSON-lines logger.
+become structured dicts. Timing inside the program is
+``utils.profiling.span``, on the profiler's clock.
 """
 
 from __future__ import annotations
 
-import json
-import sys
-import time
-from typing import Optional, TextIO
+from typing import Optional
 
 import torch
 
@@ -62,39 +59,3 @@ def render_metrics(width: int, height: int, spp: int, elapsed_s: float,
     if pass_index is not None:
         m["pass"] = pass_index
     return m
-
-
-class MetricsLogger:
-    """JSON-lines metrics sink (stderr by default)."""
-
-    def __init__(self, stream: Optional[TextIO] = None):
-        self.stream = stream or sys.stderr
-
-    def log(self, event: str, **fields) -> None:
-        rec = {"event": event, "t": round(time.time(), 3), **fields}
-        print(json.dumps(rec), file=self.stream, flush=True)
-
-    def log_topology(self) -> None:
-        self.log("topology", **device_inventory())
-
-
-class Timer:
-    """Wall-clock timer of a region (the WallClockTime analogue,
-    displayfunc.cpp:69-80). With a CUDA device it synchronises the device
-    before each clock reading, so the region's queued kernels are
-    counted."""
-
-    @staticmethod
-    def _sync():
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-
-    def __enter__(self):
-        self._sync()
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self._sync()
-        self.elapsed = time.perf_counter() - self.t0
-        return False

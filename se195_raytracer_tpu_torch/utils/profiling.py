@@ -6,23 +6,47 @@ displayfunc.cpp:69-80).
 ``trace`` records a region, CPU operators and, with a CUDA device, its
 kernels, and writes a Chrome trace (``trace.json``, opened in Perfetto or
 chrome://tracing) into a directory. ``maybe_trace`` is the no-op-when-
-disabled form the CLI uses; ``annotate`` names a span inside a trace.
+disabled form the CLI uses.
+
+``span`` is the program's one span primitive: a named range on the
+profiler's own clock, the device trace's, recorded only while a profiler
+session is open, into that session. The port opens one at each layer of a
+render (``pt.*``) and of an inverse step (``opt.*``, ``k1b.*``); a
+``torch.profiler`` session around any caller (``trace``, the benchmark's
+traced window) holds them beside the CUDA runtime's calls and the device's
+kernels. A unit's spans are grouped by time: a render's or a step's root
+(``pt.render``, ``opt.step``) holds its children's intervals, those that
+autograd's thread opens during the step's backward too.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-from typing import Iterator, Optional
+from typing import ContextManager, Iterator, Optional
+
+import torch
 
 TRACE_FILE = "trace.json"
+
+_IDLE = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
+
+
+def span(name: str) -> ContextManager:
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler session is open on this thread (autograd's worker threads
+    inherit the caller's), else one shared null context: one flag check,
+    nothing recorded."""
+    if not _profiling():
+        return _IDLE
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager
 def trace(trace_dir: str) -> Iterator[None]:
     """Capture a torch.profiler trace of the enclosed region into
     ``trace_dir/trace.json``."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -43,13 +67,4 @@ def maybe_trace(trace_dir: Optional[str]) -> Iterator[None]:
         with trace(trace_dir):
             yield
     else:
-        yield
-
-
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named sub-region inside a trace (a span on the timeline)."""
-    from torch.profiler import record_function
-
-    with record_function(name):
         yield

@@ -7,7 +7,6 @@ uninterrupted render of the other package under smallpt's contract
 (tests/test_torch_smallpt.py:5-8; the two packages' passes agree to that
 contract, not bitwise), and within the port a resume is bitwise."""
 
-import io
 import json
 import os
 
@@ -168,28 +167,12 @@ def test_render_metrics_equal_jax(args):
     assert render_metrics(64, 64, 4, 0.5, pass_index=3)["rays_per_sec"] == 32768.0
 
 
-def test_metrics_logger_lines():
-    from se195_raytracer_tpu_torch.utils.metrics import MetricsLogger, Timer, render_metrics
-
-    buf = io.StringIO()
-    log = MetricsLogger(buf)
-    log.log("step", **render_metrics(64, 64, 4, 0.5, pass_index=3))
-    log.log_topology()
-    lines = buf.getvalue().strip().splitlines()
-    rec = json.loads(lines[0])
-    assert rec["event"] == "step" and rec["pass"] == 3 and isinstance(rec["t"], float)
-    assert json.loads(lines[1])["event"] == "topology"
-    with Timer() as t:
-        sum(range(1000))
-    assert t.elapsed >= 0.0
-
-
 def test_maybe_trace_writes_a_trace_on_cpu(tmp_path):
-    from se195_raytracer_tpu_torch.utils.profiling import annotate, maybe_trace
+    from se195_raytracer_tpu_torch.utils.profiling import maybe_trace, span
 
     d = tmp_path / "prof"
     with maybe_trace(str(d)):
-        with annotate("render"):
+        with span("render"):
             render(*_port("simple"), RenderConfig(width=8, height=8, use_kernel=False),
                    device="cpu")
     trace = json.loads((d / "trace.json").read_text())
