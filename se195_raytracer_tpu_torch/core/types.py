@@ -8,6 +8,7 @@ SoA form) plus the static, ascending tuple of emissive sphere indices.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Tuple
 
 import numpy as np
@@ -34,6 +35,23 @@ def resolve_device(device=None) -> torch.device:
             "PyTorch path on the CPU"
         )
     return dev
+
+
+@functools.lru_cache(maxsize=64)
+def _device_copy(values: Tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    # A normal tensor even when first asked for under inference mode, so
+    # that autograd may save it (``update_camera``'s ``up``).
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
+
+
+def device_copy(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)``, copied to the
+    device once per (values, dtype, device) and kept: a copy from pageable
+    host memory blocks the host until the stream's queued work is done, so
+    a per-call copy would stall every launch that needs it. It never
+    requires grad. Callers must not write to it."""
+    return _device_copy(tuple(values), dtype, torch.device(device))
 
 
 def _ref_is_zero_vec(e: np.ndarray) -> bool:
@@ -195,10 +213,12 @@ def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def update_camera(camera: Camera, width: int, height: int) -> CameraBasis:
     """The screen basis exactly as displayfunc.cpp:182-195, in float32:
-    fov = 45 degrees; x axis scaled by width*fov/height, y axis by fov."""
+    fov = 45 degrees; x axis scaled by width*fov/height, y axis by fov.
+    ``up`` is kept on the device (``device_copy``), so the call copies
+    nothing from the host and never waits on the card."""
     d = camera.target - camera.orig
     d = d * (1.0 / sqrt_rn(dot3(d, d)))
-    up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=d.device)
+    up = device_copy((0.0, 1.0, 0.0), torch.float32, d.device)
     fov = np.float32(np.pi / 180.0) * np.float32(45.0)
     cx = _cross(d, up)
     cx = cx * (1.0 / sqrt_rn(dot3(cx, cx)))

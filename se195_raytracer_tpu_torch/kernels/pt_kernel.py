@@ -43,6 +43,7 @@ from se195_raytracer_tpu_torch.core.types import (
     Camera,
     CameraBasis,
     Scene,
+    device_copy,
     dot3,
     resolve_device,
     sqrt_rn,
@@ -76,18 +77,6 @@ CULL_REACH = 2e-3
 _MAX_SMEM_BYTES = 227 * 1024
 
 PTState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]
-
-
-@functools.lru_cache(maxsize=64)
-def _device_copy(values: Tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    return torch.tensor(values, dtype=dtype, device=device)
-
-
-def device_copy(values, dtype: torch.dtype, device) -> torch.Tensor:
-    """``torch.tensor(values, dtype=dtype, device=device)``, copied to the
-    device once per (values, dtype, device) and kept: the copy from the host
-    would stall every launch that needs it. Callers must not write to it."""
-    return _device_copy(tuple(values), dtype, torch.device(device))
 
 
 def pack_scene(scene: Scene) -> torch.Tensor:
@@ -595,9 +584,9 @@ def _k2_tables(scene_tab: torch.Tensor, light_indices: Tuple[int, ...]):
     """(half-block, block, group and remainder bounds, int32 light list) of a
     scene table on its device, made once per table (held here, so its id
     stays unique; remade if the table was written to): the bounds are ~30
-    small ops and the light list a copy to the device that would stall each
-    launch. Spans ``pt.k2_tables`` the lookup and ``pt.k2_tables.build`` a
-    miss."""
+    small ops. The light list is ``light_list``'s, kept across tables, so a
+    miss copies nothing from the host. Spans ``pt.k2_tables`` the lookup and
+    ``pt.k2_tables.build`` a miss."""
     with span("pt.k2_tables"):
         key = id(scene_tab)
         hit = _K2_TABLES.get(key)
@@ -605,7 +594,7 @@ def _k2_tables(scene_tab: torch.Tensor, light_indices: Tuple[int, ...]):
             with span("pt.k2_tables.build"):
                 if len(_K2_TABLES) >= 8:
                     _K2_TABLES.pop(next(iter(_K2_TABLES)))
-                lights = torch.tensor(light_indices, dtype=torch.int32, device=scene_tab.device)
+                lights = light_list(light_indices, scene_tab.device)
                 hit = _K2_TABLES[key] = (scene_tab, scene_tab._version, light_indices,
                                          half_bounds(scene_tab), block_bounds(scene_tab),
                                          group_bounds(scene_tab), remainder_bound(scene_tab),
