@@ -48,6 +48,7 @@ from se195_raytracer_tpu_torch.models.whitted5 import (
     trace_passes,
 )
 from se195_raytracer_tpu_torch.scenes.whitted5_scenes import BOX5, Whitted5Scene
+from se195_raytracer_tpu_torch.utils.profiling import span
 
 # Deepest tree the kernel's per-thread node slots hold (kMaxDepth).
 MAX_TRACE_DEPTH = 5
@@ -99,14 +100,18 @@ _PACKED = {}
 
 
 def _packed(scene: Whitted5Scene):
-    hit = _PACKED.get(id(scene))
-    if hit is None or hit[0] is not scene:
-        if len(_PACKED) >= 8:
-            _PACKED.pop(next(iter(_PACKED)))
-        aux, uvs = pack_whitted5_aux(scene)
-        texels = pack_texel_units(scene.textures, scene.device)
-        hit = _PACKED[id(scene)] = (scene, pack_whitted5_scene(scene), aux, uvs, texels)
-    return hit[1:]
+    """The scene's packed tables, in span ``w5.tables``, with
+    ``w5.tables.build`` inside it on a miss."""
+    with span("w5.tables"):
+        hit = _PACKED.get(id(scene))
+        if hit is None or hit[0] is not scene:
+            with span("w5.tables.build"):
+                if len(_PACKED) >= 8:
+                    _PACKED.pop(next(iter(_PACKED)))
+                aux, uvs = pack_whitted5_aux(scene)
+                texels = pack_texel_units(scene.textures, scene.device)
+                hit = _PACKED[id(scene)] = (scene, pack_whitted5_scene(scene), aux, uvs, texels)
+        return hit[1:]
 
 
 def box_records(scene: Whitted5Scene) -> Tuple[Tuple[int, ...], torch.Tensor]:

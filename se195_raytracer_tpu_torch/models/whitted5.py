@@ -50,6 +50,7 @@ from se195_raytracer_tpu_torch.scenes.whitted5_scenes import (
     SPHERE5,
     Whitted5Scene,
 )
+from se195_raytracer_tpu_torch.utils.profiling import span
 
 EPSILON5 = 0.001  # raytracer5 common.h:27
 TRACEDEPTH5 = 4  # common.h:28
@@ -803,14 +804,29 @@ def _cached_state5(n: int, seed: int, device: str = "cpu") -> MWCState:
 
 
 def _trace(scene, o, d, state, use_kernel, work=None, **kw):
-    """Every renderer traces through here: K4 when ``use_kernel`` (its plain
-    version on CPU tensors), else the plain passes, which count their live
-    work into ``work`` when it is a dict."""
-    if use_kernel:
-        from se195_raytracer_tpu_torch.kernels.whitted5_kernel import whitted5_trace_cuda
+    """Every renderer traces through here, in a ``w5.launch`` span: K4 when
+    ``use_kernel`` (its plain version on CPU tensors), else the plain
+    passes, which count their live work into ``work`` when it is a dict."""
+    with span("w5.launch"):
+        if use_kernel:
+            from se195_raytracer_tpu_torch.kernels.whitted5_kernel import whitted5_trace_cuda
 
-        return whitted5_trace_cuda(scene, o, d, state, **kw)
-    return trace_passes(scene, o, d, state, work=work, **kw)
+            return whitted5_trace_cuda(scene, o, d, state, **kw)
+        return trace_passes(scene, o, d, state, work=work, **kw)
+
+
+def _rays_and_state(width: int, height: int, dev: str, seed: int, sub=(0.5, 0.5)):
+    """The cached primary rays (``sub``, or the four sub-pixel sets when
+    ``sub`` is None) and the seed's counter state, in spans ``w5.rays`` and
+    ``w5.state``."""
+    with span("w5.rays"):
+        if sub is None:
+            o, d = _cached_rays5_4(width, height, dev)
+        else:
+            o, d = _cached_rays5(width, height, sub, dev)
+    with span("w5.state"):
+        state = _cached_state5(width * height, seed, dev)
+    return o, d, state
 
 
 def _placed(scene: Whitted5Scene, device):
@@ -839,17 +855,22 @@ def render_whitted5(
     ``soft_edges > 0`` renders the relaxed estimator (smooth shadow
     transmittance) on the plain tracer; with ``use_kernel`` it raises, since
     K4 implements the hard estimator. The plain tracer back-propagates to
-    the scene's tensors (textures, ``box_pos``, colours, ...)."""
+    the scene's tensors (textures, ``box_pos``, colours, ...).
+
+    Under a profiler session the call is a ``w5.render`` span holding
+    ``w5.rays``, ``w5.state`` and ``w5.launch`` (K4's ``w5.tables`` inside
+    it on a CUDA device)."""
     if soft_edges > 0.0 and use_kernel:
         raise NotImplementedError(
             "soft_edges > 0: K4 implements the hard estimator; render the relaxed one "
             "with use_kernel=False")
-    scene, dev = _placed(scene, device)
-    o, d = _cached_rays5(width, height, (0.5, 0.5), dev)
-    state = _cached_state5(o.shape[0], seed, dev)
-    kw = dict(soft_edges=soft_edges) if soft_edges > 0.0 else {}
-    col, _ = _trace(scene, o, d, state, use_kernel, work, spp=spp, trace_depth=trace_depth, **kw)
-    return col.reshape(height, width, 3)
+    with span("w5.render"):
+        scene, dev = _placed(scene, device)
+        o, d, state = _rays_and_state(width, height, dev, seed)
+        kw = dict(soft_edges=soft_edges) if soft_edges > 0.0 else {}
+        col, _ = _trace(scene, o, d, state, use_kernel, work, spp=spp, trace_depth=trace_depth,
+                        **kw)
+        return col.reshape(height, width, 3)
 
 
 # Extra sub-pixel offsets fired on a primitive-change edge, in pixel units
@@ -870,12 +891,12 @@ def render_whitted5_4ray(
 ) -> torch.Tensor:
     """Full 4-ray supersampling, the comparator of the adaptive renderer: the
     same four sub-pixel rays at every pixel, blended x 0.25. One K4 launch
-    (four passes, one ray set each)."""
-    scene, dev = _placed(scene, device)
-    o, d = _cached_rays5_4(width, height, dev)
-    state = _cached_state5(width * height, seed, dev)
-    col, _ = _trace(scene, o, d, state, use_kernel, work, spp=4, trace_depth=trace_depth)
-    return col.reshape(height, width, 3)
+    (four passes, one ray set each). Spans as ``render_whitted5``'s."""
+    with span("w5.render"):
+        scene, dev = _placed(scene, device)
+        o, d, state = _rays_and_state(width, height, dev, seed, sub=None)
+        col, _ = _trace(scene, o, d, state, use_kernel, work, spp=4, trace_depth=trace_depth)
+        return col.reshape(height, width, 3)
 
 
 def adaptive_bucket(width: int, height: int, min_bucket: int = 4096) -> int:
@@ -938,38 +959,42 @@ def adaptive_pipeline(
 
     Edges beyond the bucket keep their 1-ray sample. ``work``: the plain
     path's live-work count. Returns ([H, W, 3] float32, the edge count as a
-    device tensor)."""
-    scene, dev = _placed(scene, device)
-    r = width * height
-    o, d = _cached_rays5(width, height, (0.0, 0.0), dev)
-    state = _cached_state5(r, seed, dev)
-    col0, st, idx = _trace(scene, o, d, state, use_kernel, work, spp=1,
-                           trace_depth=trace_depth, return_primary_idx=True)
-    idx = idx.to(torch.int64)
-    prev = torch.cat([torch.full((1,), -1, dtype=torch.int64, device=o.device), idx[:-1]])
-    edge = idx != prev
+    device tensor). Under a profiler session the call is one ``w5.render``
+    span holding ``w5.rays``, ``w5.state``, a ``w5.launch`` for each of
+    phases 1 and 3, and ``w5.select`` and ``w5.blend`` (phases 2 and 4)."""
+    with span("w5.render"):
+        scene, dev = _placed(scene, device)
+        r = width * height
+        o, d, state = _rays_and_state(width, height, dev, seed, sub=(0.0, 0.0))
+        col0, st, idx = _trace(scene, o, d, state, use_kernel, work, spp=1,
+                               trace_depth=trace_depth, return_primary_idx=True)
+        with span("w5.select"):
+            idx = idx.to(torch.int64)
+            prev = torch.cat([torch.full((1,), -1, dtype=torch.int64, device=o.device),
+                              idx[:-1]])
+            edge = idx != prev
+            padded = adaptive_bucket(width, height, min_bucket)
+            rank = torch.cumsum(edge.to(torch.int64), 0) - 1
+            used = edge & (rank < padded)
+            slot = torch.where(used, rank, padded)
+            sel = torch.zeros(padded + 1, dtype=torch.int64, device=o.device)
+            sel.scatter_(0, slot, torch.arange(r, dtype=torch.int64, device=o.device))
+            sel = sel[:padded]
 
-    padded = adaptive_bucket(width, height, min_bucket)
-    rank = torch.cumsum(edge.to(torch.int64), 0) - 1
-    used = edge & (rank < padded)
-    slot = torch.where(used, rank, padded)
-    sel = torch.zeros(padded + 1, dtype=torch.int64, device=o.device)
-    sel.scatter_(0, slot, torch.arange(r, dtype=torch.int64, device=o.device))
-    sel = sel[:padded]
+        origin, p1, dx, dy = _cached_frame5(width, height, dev)
+        colx = (sel % width).to(torch.float32)
+        rowy = (sel // width).to(torch.float32)
+        eo, ed = [], []
+        for fx, fy in ADAPTIVE_OFFSETS:
+            screen = p1 + (colx + fx)[:, None] * dx + (rowy + fy)[:, None] * dy
+            dirs = screen - origin
+            ed.append(dirs / sqrt_rn(dot3(dirs, dirs))[:, None])
+            eo.append(origin.expand(padded, 3))
+        st_sel = (st[0][sel], st[1][sel])
+        extra, _ = _trace(scene, torch.stack(eo), torch.stack(ed), st_sel, use_kernel, work,
+                          spp=3, mean=False, trace_depth=trace_depth)
 
-    origin, p1, dx, dy = _cached_frame5(width, height, dev)
-    colx = (sel % width).to(torch.float32)
-    rowy = (sel // width).to(torch.float32)
-    eo, ed = [], []
-    for fx, fy in ADAPTIVE_OFFSETS:
-        screen = p1 + (colx + fx)[:, None] * dx + (rowy + fy)[:, None] * dy
-        dirs = screen - origin
-        ed.append(dirs / sqrt_rn(dot3(dirs, dirs))[:, None])
-        eo.append(origin.expand(padded, 3))
-    st_sel = (st[0][sel], st[1][sel])
-    extra, _ = _trace(scene, torch.stack(eo), torch.stack(ed), st_sel, use_kernel, work,
-                      spp=3, mean=False, trace_depth=trace_depth)
-
-    ext = extra[torch.clamp(rank, 0, padded - 1)]
-    img = torch.where(used[:, None], (col0 + ext) * 0.25, col0)
-    return img.reshape(height, width, 3), edge.sum()
+        with span("w5.blend"):
+            ext = extra[torch.clamp(rank, 0, padded - 1)]
+            img = torch.where(used[:, None], (col0 + ext) * 0.25, col0)
+            return img.reshape(height, width, 3), edge.sum()
