@@ -617,7 +617,7 @@ def k4_split(scene, width, height, works):
     from se195_raytracer_tpu_torch.models import whitted5 as P
 
     o, d = P._cached_rays5(width, height, (0.5, 0.5), "cuda")
-    state = P._cached_state5(width * height, W5_SEED, "cuda")
+    state = P._state5(width * height, W5_SEED, "cuda")
     rows = {}
     for depth, samples in K4_SPLIT:
         work = works.get((depth, samples))
@@ -2007,7 +2007,7 @@ def k4_texel_stream(scene, width, height):
 
     o, d = P._cached_rays5(width, height, (0.5, 0.5), "cuda")
     lanes = []
-    P.trace_passes(scene, o, d, P._cached_state5(width * height, W5_SEED, "cuda"),
+    P.trace_passes(scene, o, d, P._state5(width * height, W5_SEED, "cuda"),
                    on_texel=lambda t, u, v: lanes.append((t, u, v)))
     return tuple(torch.cat(x) for x in zip(*lanes))
 
@@ -2143,7 +2143,7 @@ def k5_share(scene, label, w, h, spp):
 
     twin = dataclasses.replace(scene, tex_id=tuple(-1 for _ in scene.tex_id))
     o, d = P._cached_rays5(w, h, (0.5, 0.5), "cuda")
-    state = P._cached_state5(w * h, W5_SEED, "cuda")
+    state = P._state5(w * h, W5_SEED, "cuda")
     works = []
     for sc in (scene, twin):
         works.append({})
@@ -2241,6 +2241,39 @@ def w5_work_ops(scene, work, shadow="shadow_sweeps_used"):
             + work["glossy"] * W5_OPS_GLOSSY)
 
 
+def w5_state_check(r, state):
+    """The whitted5 counter state that the seed kernel makes on the card,
+    bitwise numpy's hash (``_init_state5_np``): the whole ``r``-pixel frame
+    at ``W5_SEED`` (``state``) and at a seed past 32 bits, and each shard's
+    lanes (``lane_offset``) at 8 shards and at 7, whose last shard has pad
+    lanes (state 2)."""
+    import torch
+
+    from se195_raytracer_tpu_torch.models import whitted5 as P
+
+    cases = 0
+    for seed in (W5_SEED, 2**62 - 1):
+        want = [torch.from_numpy(x.astype("int64")) for x in P._init_state5_np(r, seed)]
+        got = state if seed == W5_SEED else P._state5(r, seed, "cuda")
+        check(all(g.dtype == torch.uint32 for g in got), f"whitted5 state dtype {got[0].dtype}")
+        check(all(torch.equal(g.cpu().to(torch.int64), x) for g, x in zip(got, want)),
+              f"whitted5 state, seed {seed}: the card's words differ from numpy's")
+        cases += 1
+        for shards in (SHARDS, 7):
+            per = -(-r // shards)
+            for k in range(shards):
+                lo, hi = min(k * per, r), min((k + 1) * per, r)
+                key, ctr = P._state5(r, seed, "cuda", lanes=per, lane_offset=lo)
+                for g, x in zip((key, ctr), want):
+                    pad = torch.full((per - (hi - lo),), 2, dtype=torch.int64)
+                    check(torch.equal(g.cpu().to(torch.int64), torch.cat([x[lo:hi], pad])),
+                          f"whitted5 state, seed {seed}, shard {k} of {shards}: the card's "
+                          f"words differ from numpy's slice padded with 2")
+                cases += 1
+    print(f"  whitted5 state on the card: {cases} frames and shards bitwise numpy's hash "
+          f"(seeds {W5_SEED} and 2^62-1, {SHARDS} and 7 shards)")
+
+
 def k4_section(tmp):
     """Phases 10-12: K4 against the plain tracer, the whitted5 main paths,
     the timings."""
@@ -2257,7 +2290,8 @@ def k4_section(tmp):
     print(f"[10] K4 against the plain tracer: room5 {w}x{h}, spp 1, seed {W5_SEED}, depth "
           f"{P.TRACEDEPTH5}, textures {[tuple(t.shape) for t in scene.textures]}")
     o, d = P._cached_rays5(w, h, (0.5, 0.5), "cuda")
-    state = P._cached_state5(r, W5_SEED, "cuda")
+    state = P._state5(r, W5_SEED, "cuda")
+    w5_state_check(r, state)
     col, st, idx = w5k.whitted5_trace_cuda(scene, o, d, state, return_primary_idx=True)
     pcol, pst, pidx = P.trace_passes(scene, o, d, state, return_primary_idx=True)
     check(torch.equal(st[1], pst[1]), "K4: RNG counters differ from the plain version's")
@@ -2284,10 +2318,12 @@ def k4_section(tmp):
         out = fn()
         torch.cuda.synchronize()
         got = read_counters()
-        others = {k: v for k, v in got.items() if k not in ("K4", "K5")}
+        others = {k: v for k, v in got.items() if k not in ("K4", "K5", "Seed")}
         print(f"  {label}: launches {got}")
-        check(got["K4"] == want_k4 and got["K5"] == want_k4 and not any(others.values()),
-              f"{label}: launches {got}, want {want_k4} K4 (K5 inside), nothing else")
+        # Each render seeds its counter state on the card once.
+        check(got["K4"] == want_k4 and got["K5"] == want_k4 and got["Seed"] == 1
+              and not any(others.values()),
+              f"{label}: launches {got}, want {want_k4} K4 (K5 inside), one Seed, nothing else")
         for k in ("K4", "K5"):
             main_launches[k] = main_launches.get(k, 0) + got[k]
         return out
@@ -2305,7 +2341,7 @@ def k4_section(tmp):
         scene, w, h, spp=W5_SPP, seed=W5_SEED), 1)
     frames["4ray"] = counted("render_whitted5_4ray", lambda: P.render_whitted5_4ray(
         scene, w, h, seed=W5_SEED), 1)
-    P.adaptive_pipeline(scene, w, h, seed=W5_SEED)  # caches this size's rays and state
+    P.adaptive_pipeline(scene, w, h, seed=W5_SEED)  # caches this size's rays
 
     def adaptive_no_sync():
         torch.cuda.set_sync_debug_mode("error")
@@ -2378,7 +2414,7 @@ def k4_reference_textures(tmp, base, counted):
         scene, w, h, spp=W5_SPP, seed=W5_SEED), 1)
     plain = P.render_whitted5(scene, w, h, spp=W5_SPP, seed=W5_SEED, use_kernel=False)
     o, d = P._cached_rays5(w, h, (0.5, 0.5), "cuda")
-    state = P._cached_state5(w * h, W5_SEED, "cuda")
+    state = P._state5(w * h, W5_SEED, "cuda")
     col, st, idx = w5k.whitted5_trace_cuda(scene, o, d, state, return_primary_idx=True)
     pcol, pst, pidx = P.trace_passes(scene, o, d, state, return_primary_idx=True)
     same = {"spp 8 frame": torch.equal(frame, plain), "spp 1 colour": torch.equal(col, pcol),
@@ -2523,7 +2559,7 @@ def w5_cell(scene, w, h, cfg):
     from se195_raytracer_tpu_torch.models import whitted5 as P
 
     r = w * h
-    state = P._cached_state5(r, W5_SEED, "cuda")
+    state = P._state5(r, W5_SEED, "cuda")
     if cfg.startswith("spp"):
         spp = int(cfg[3:])
         o, d = P._cached_rays5(w, h, (0.5, 0.5), "cuda")
@@ -2720,9 +2756,9 @@ def _sharded_cell(label, single_fn, sharded_fn, want):
     same = bool(torch.equal(sharded, single))
     diff = (sharded - single).abs().max().item()
     check(bool(torch.isfinite(sharded).all()), f"{label}: sharded image not finite")
-    # K5 runs inside each K4 launch on a textured scene; each K1/K2 shard
-    # seeds its own lanes in the seed kernel.
-    seeds = SHARDS if want in ("K1", "K2") else 0
+    # K5 runs inside each K4 launch on a textured scene; each K1/K2/K4
+    # shard seeds its own lanes in the seed kernel.
+    seeds = SHARDS if want in ("K1", "K2", "K4") else 0
     others = {k: v for k, v in launches.items()
               if k not in (want, "Seed", "K5" if want == "K4" else want)}
     check(launches[want] == SHARDS and launches["Seed"] == seeds and not any(others.values())

@@ -362,7 +362,7 @@ def k4_calls(scene):
     w, h = cs.W5_SIZES[-1]
     o, d = P._cached_rays5(w, h, (0.5, 0.5), "cuda")
     o4, d4 = P._cached_rays5_4(w, h, "cuda")
-    state = P._cached_state5(w * h, cs.W5_SEED, "cuda")
+    state = P._state5(w * h, cs.W5_SEED, "cuda")
 
     def spp8():
         col, _, idx = w5k.whitted5_trace_cuda(scene, o, d, state, spp=cs.W5_SPP,

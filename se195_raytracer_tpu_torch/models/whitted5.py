@@ -41,6 +41,7 @@ import torch
 
 from se195_raytracer_tpu_torch.core.rng import MWCState, counter_next_masked
 from se195_raytracer_tpu_torch.core.types import dot3, resolve_device, sqrt_rn
+from se195_raytracer_tpu_torch.kernels.seed_kernel import seed_lanes
 from se195_raytracer_tpu_torch.models.smallpt import _sigmoid, _soft_root
 from se195_raytracer_tpu_torch.models.whitted import _pow20
 from se195_raytracer_tpu_torch.scenes.whitted5_scenes import (
@@ -795,12 +796,17 @@ def _cached_rays5_4(width: int, height: int, device: str = "cpu"):
     return torch.stack([r[0] for r in rays]), torch.stack([r[1] for r in rays])
 
 
-@functools.lru_cache(maxsize=32)
-def _cached_state5(n: int, seed: int, device: str = "cpu") -> MWCState:
-    """Device copy of ``_init_state5_np`` (int64 words holding uint32)."""
-    key, ctr = _init_state5_np(n, seed)
-    return (torch.from_numpy(key.astype(np.int64)).to(device),
-            torch.from_numpy(ctr.astype(np.int64)).to(device))
+def _state5(n: int, seed: int, device="cpu", lanes: Optional[int] = None,
+            lane_offset: int = 0) -> MWCState:
+    """The seed's counter-RNG state (key, counter) of an ``n``-pixel frame:
+    two uint32 [lanes] tensors (all ``n`` by default), lane l holding pixel
+    ``lane_offset + l`` bitwise as ``_init_state5_np`` does, and a pixel at
+    or past ``n`` the pad state 2 (a shard of ``render_whitted5_sharded``).
+    On a CUDA device the seed kernel hashes it on the card (one launch on
+    the current stream, no copy from the host, no sync); on the CPU numpy
+    hashes it."""
+    return seed_lanes("counter", seed, n, n if lanes is None else lanes,
+                      lane_offset=lane_offset, device=device)
 
 
 def _trace(scene, o, d, state, use_kernel, work=None, **kw):
@@ -817,15 +823,15 @@ def _trace(scene, o, d, state, use_kernel, work=None, **kw):
 
 def _rays_and_state(width: int, height: int, dev: str, seed: int, sub=(0.5, 0.5)):
     """The cached primary rays (``sub``, or the four sub-pixel sets when
-    ``sub`` is None) and the seed's counter state, in spans ``w5.rays`` and
-    ``w5.state``."""
+    ``sub`` is None) and the seed's counter state (``_state5``, made
+    afresh), in spans ``w5.rays`` and ``w5.state``."""
     with span("w5.rays"):
         if sub is None:
             o, d = _cached_rays5_4(width, height, dev)
         else:
             o, d = _cached_rays5(width, height, sub, dev)
     with span("w5.state"):
-        state = _cached_state5(width * height, seed, dev)
+        state = _state5(width * height, seed, dev)
     return o, d, state
 
 
@@ -943,7 +949,7 @@ def adaptive_pipeline(
     work: Optional[dict] = None,
 ):
     """The adaptive render in four phases on the device, with no host sync
-    (once the scene's tables, rays and state are cached):
+    (once the scene's tables and rays are cached):
 
     1. primary: one ray per pixel at the raw ``lpos`` and the level-1 hit ids;
        edge = the hit primitive differs from the previous pixel's in scan

@@ -216,11 +216,11 @@ def _ray_shards(n: int, mesh: Mesh):
     return per, [(min(k * per, n), min((k + 1) * per, n)) for k in mesh.local_shards]
 
 
-def _pad_rows(t: torch.Tensor, rows: int, value=0) -> torch.Tensor:
+def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
     if t.shape[0] == rows:
         return t
-    fill = torch.full((rows - t.shape[0],) + tuple(t.shape[1:]), value, dtype=t.dtype,
-                      device=t.device)
+    fill = torch.zeros((rows - t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype,
+                       device=t.device)
     return torch.cat([t, fill])
 
 
@@ -284,11 +284,11 @@ def render_whitted5_sharded(
     mesh: Optional[Mesh] = None,
     use_kernel: bool = True,
 ) -> torch.Tensor:
-    """raytracer5-family frame with the ray axis sharded over ``mesh``. The
-    counter-RNG state (key, counter) is made over the whole frame from the
-    absolute ray id (``_init_state5_np``; the rays and state are cached on
-    the device per size and seed, as ``render_whitted5`` caches them) and
-    sliced; pad lanes get the state 2 and zero rays. With
+    """raytracer5-family frame with the ray axis sharded over ``mesh``. Each
+    shard seeds its own lanes' counter-RNG state (key, counter) from the
+    absolute ray id (``models.whitted5._state5``: the seed kernel on a CUDA device);
+    its pad lanes get the state 2 and zero rays. The frame's rays are
+    cached on the device per size, as ``render_whitted5`` caches them. With
     ``use_kernel`` each shard runs its ``spp`` passes in one K4 launch (K5
     inside; the plain tracer on the CPU), else on the plain tracer; the
     mean is per lane, so the frame is bitwise ``render_whitted5``'s.
@@ -296,7 +296,7 @@ def render_whitted5_sharded(
     from se195_raytracer_tpu_torch.models.whitted5 import (
         TRACEDEPTH5,
         _cached_rays5,
-        _cached_state5,
+        _state5,
         _trace,
     )
 
@@ -310,12 +310,11 @@ def render_whitted5_sharded(
     cols = []
     for k, (lo, hi) in zip(mesh.local_shards, ranges):
         dev = mesh.devices[k]
-        # The frame's rays and state on the shard's device, made once per
-        # size and seed (as render_whitted5 caches them), then sliced.
+        # The frame's rays on the shard's device, made once per size (as
+        # render_whitted5 caches them), then sliced.
         o, d = _cached_rays5(width, height, (0.5, 0.5), str(dev))
-        key, ctr = _cached_state5(r, seed, str(dev))
         ok, dk = _pad_rows(o[lo:hi], per), _pad_rows(d[lo:hi], per)
-        state = (_pad_rows(key[lo:hi], per, 2), _pad_rows(ctr[lo:hi], per, 2))
+        state = _state5(r, seed, dev, lanes=per, lane_offset=lo)
         col, _ = _trace(scenes[dev], ok, dk, state, use_kernel, spp=spp, trace_depth=trace_depth)
         cols.append(col)
     return gather_shards(cols, mesh)[:r].reshape(height, width, 3)

@@ -187,7 +187,7 @@ def test_texel_stream_hook():
     b.plane((0, 0, -1), 10.4, diff=1.7, color=(0.4, 0.3, 0.3))
     scene = b.build("cpu")
     o, d = P._cached_rays5(24, 18, (0.5, 0.5), "cpu")
-    state = P._cached_state5(24 * 18, 3, "cpu")
+    state = P._state5(24 * 18, 3, "cpu")
     lanes, work = [], {}
     P.trace_passes(scene, o, d, state, spp=2, trace_depth=3, work=work,
                    on_texel=lambda t, u, v: lanes.append((t, u, v)))
@@ -250,7 +250,7 @@ def test_k5_lane_sets_on_cuda(cuda, tmp_path, form):
     flat, textab = tk.pack_texel_atlas(scene.textures)
     o, d = P._cached_rays5(800, 600, (0.5, 0.5), "cuda")
     lanes = []
-    P.trace_passes(scene, o, d, P._cached_state5(800 * 600, 3, "cuda"),
+    P.trace_passes(scene, o, d, P._state5(800 * 600, 3, "cuda"),
                    on_texel=lambda t, u, v: lanes.append((t, u, v)))
     sets = [tuple(torch.from_numpy(x).cuda() for x in _uv_lanes(n, 2, 6))
             for n in (1 << 18, 1 << 22)]
@@ -274,7 +274,7 @@ def test_k4_u8_room5_bitwise_on_cuda(cuda, tmp_path):
     ids at 160x120, spp 2; one launch."""
     scene = _room5_u8("cuda", tmp_path)
     o, d = P._cached_rays5(160, 120, (0.5, 0.5), "cuda")
-    state = P._cached_state5(160 * 120, 3, "cuda")
+    state = P._state5(160 * 120, 3, "cuda")
     before = (wk.whitted5_trace_cuda.launches, wk.whitted5_trace_cuda.texel_launches)
     col, st, idx = wk.whitted5_trace_cuda(scene, o, d, state, spp=2, return_primary_idx=True)
     torch.cuda.synchronize()

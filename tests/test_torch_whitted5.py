@@ -182,9 +182,9 @@ def test_camera_rays_and_state_match_jax(moved):
     for seed in (0, 7):
         for a, b in zip(P._init_state5_np(W * H, seed), J._init_state5_np(W * H, seed)):
             np.testing.assert_array_equal(a, np.asarray(b))
-    key, ctr = P._cached_state5(W * H, 7, "cpu")
+    key, ctr = P._state5(W * H, 7, "cpu")
     np.testing.assert_array_equal(key.numpy(), np.asarray(J._init_state5_np(W * H, 7)[0]))
-    assert key.dtype == torch.int64 and not ctr.any()
+    assert key.dtype == torch.uint32 and not ctr.any()
 
 
 def test_load_tga_matches_jax(tmp_path):
@@ -374,7 +374,7 @@ def test_render_adaptive_matches_jax():
     assert frac == edge.double().mean().item()
     # (c0 + (c1 + c2 + c3)) x 0.25 against (c0 + c1 + c2 + c3) x 0.25
     torch.testing.assert_close(img[edge], four[edge], rtol=1e-6, atol=1e-7)
-    primary = P.trace_passes(ps, o, d, P._cached_state5(W * H, 3, "cpu"),
+    primary = P.trace_passes(ps, o, d, P._state5(W * H, 3, "cpu"),
                              trace_depth=RENDER_DEPTH)[0].reshape(H, W, 3)
     assert torch.equal(img[~edge], primary[~edge])
 
@@ -387,7 +387,7 @@ def test_adaptive_bucket_overflow_keeps_one_ray():
     small, frac2 = P.render_whitted5_adaptive(ps, W, H, seed=3, min_bucket=8, device="cpu")
     assert frac == frac2 and P.adaptive_bucket(W, H, 8) == 16
     o, d = P._cached_rays5(W, H, (0.0, 0.0), "cpu")
-    state = P._cached_state5(W * H, 3, "cpu")
+    state = P._state5(W * H, 3, "cpu")
     col0, _, idx = P.trace_passes(ps, o, d, state, return_primary_idx=True)
     edge = idx != torch.cat([torch.tensor([-1]), idx[:-1]])
     rank = torch.cumsum(edge.long(), 0) - 1
@@ -503,7 +503,7 @@ def test_k4_shadow_test_matches_nearest_is():
         seen["rays"] += o_.shape[0]
         seen["lit"] += int(vis.sum())
 
-    P.trace_passes(scene, o, d, P._cached_state5(24 * 18, 3, "cpu"), trace_depth=3,
+    P.trace_passes(scene, o, d, P._state5(24 * 18, 3, "cpu"), trace_depth=3,
                    on_sweep=hook)
     assert seen["rays"] > 1000 and 0 < seen["lit"] < seen["rays"]
     for tie, light_at in zip(_tie_scenes(), (0, 1)):
@@ -559,7 +559,7 @@ def _check_sweeps(scene, o, d, margin):
             stats["wrong"] += int((vis != P._nearest_is(scene, o_, d_, max_t[mask],
                                                          target)).sum())
 
-    P.trace_passes(scene, o, d, P._cached_state5(o.shape[0], 3, "cpu"), trace_depth=3,
+    P.trace_passes(scene, o, d, P._state5(o.shape[0], 3, "cpu"), trace_depth=3,
                    on_sweep=hook)
     return stats
 
@@ -695,7 +695,7 @@ def test_k4_matches_plain_on_cuda(cuda):
     launch, the same counters, the colour under the robust contract."""
     scene = S.room5_scene("procedural", device="cuda")
     o, d = P._cached_rays5(160, 120, (0.5, 0.5), "cuda")
-    state = P._cached_state5(160 * 120, 3, "cuda")
+    state = P._state5(160 * 120, 3, "cuda")
     before = wk.whitted5_trace_cuda.launches
     col, st, idx = wk.whitted5_trace_cuda(scene, o, d, state, spp=2, return_primary_idx=True)
     torch.cuda.synchronize()
@@ -713,7 +713,7 @@ def test_k4_bitwise_on_cuda(cuda):
     in the middle column and row), for room5, the deterministic scene and
     the two tie scenes; one launch each."""
     o, d = P._cached_rays5(160, 120, (0.0, 0.0), "cuda")
-    state = P._cached_state5(160 * 120, 3, "cuda")
+    state = P._state5(160 * 120, 3, "cuda")
     scenes = [S.room5_scene("procedural", device="cuda"), _det_rows(S).build("cuda")]
     scenes += [t.to("cuda") for t in _tie_scenes()]
     for scene in scenes:
@@ -736,7 +736,7 @@ def test_k4_large_scene_on_cuda(cuda):
     scene = _large_scene("cuda")
     assert wk.shared_memory_bytes(scene.num_prims, 0) > 48 * 1024
     o, d = P._cached_rays5(64, 48, (0.5, 0.5), "cuda")
-    state = P._cached_state5(64 * 48, 3, "cuda")
+    state = P._state5(64 * 48, 3, "cuda")
     before = wk.whitted5_trace_cuda.launches
     col, st, idx = wk.whitted5_trace_cuda(scene, o, d, state, return_primary_idx=True)
     torch.cuda.synchronize()
