@@ -334,7 +334,7 @@ def pass_inputs(scene_name, width, height, integrator, rng, device, seed=SEED):
                        integrator=integrator, rng=rng)
     scene_tab = ptk.pack_scene(scene)
     cam_tab = ptk.pack_camera(ptk.update_camera(camera, width, height))
-    blocked = scene.num_spheres > ptk.UNROLL_MAX_SPHERES
+    blocked = ptk.uses_k2(scene.num_spheres)
     pix = torch.from_numpy(ptk.ray_layout(width, height, blocked)[1]).to(device) if blocked else None
     kw = dict(width=width, height=height, max_depth=cfg.max_depth,
               direct_only=integrator == "dl", light_indices=scene.light_indices, rng=rng)
@@ -748,8 +748,8 @@ def render_breakdown(scene, camera, cfg, kernel_ms, e2e_ms, label):
     (the steps' Python glue, and the syncs they overlap with in a render).
     Beside them (``replaced``), what the steps this change replaced cost:
     numpy's seed route, the light-list copy K1 made every launch and (K2)
-    the pix/inv copies every render made. K2's bounds (``_k2_tables``, on a
-    fresh table as every render packs one) include a clone of the table."""
+    the pix/inv copies every render made. ``pack_scene`` and K2's bounds
+    (``_k2_tables``) are the render's lookups of the scene's kept tables."""
     import torch
 
     from se195_raytracer_tpu_torch.kernels import pt_kernel as ptk
@@ -757,12 +757,11 @@ def render_breakdown(scene, camera, cfg, kernel_ms, e2e_ms, label):
     dev = torch.device("cuda")
     w, h = cfg.width, cfg.height
     r = w * h
-    blocked = scene.num_spheres > ptk.UNROLL_MAX_SPHERES
+    blocked = ptk.uses_k2(scene.num_spheres)
     lights = tuple(scene.light_indices)
     _, pix_np, inv_np = ptk.ray_layout(w, h, blocked)
     s0, s1, acc = ptk.init_pt_state(cfg, dev, blocked)
-    tab = ptk.pack_scene(scene)
-    inv = ptk.lane_tables(w, h, blocked, 1, dev)[1]
+    inv = ptk.lane_layout(w, h, blocked, 1, dev).inv
     flat = acc.reshape(3, -1)
 
     def gather():
@@ -771,16 +770,17 @@ def render_breakdown(scene, camera, cfg, kernel_ms, e2e_ms, label):
     img = gather()
     steps = {
         "ray_layout": lambda: ptk.ray_layout(w, h, blocked),
-        "lane_tables": lambda: ptk.lane_tables(w, h, blocked, 1, dev),
+        "lane_tables": lambda: ptk.lane_layout(w, h, blocked, 1, dev),
         "scene_to": lambda: (scene.to(dev), camera.to(dev)),
         "seed": lambda: ptk.init_pt_state(cfg, dev, blocked),
-        "pack_scene": lambda: ptk.pack_scene(scene),
+        "pack_scene": lambda: ptk.scene_table(scene),
         "pack_camera": lambda: ptk.pack_camera(ptk.update_camera(camera, w, h)),
     }
     if blocked:
-        steps["k2_tables"] = lambda: ptk._k2_tables(tab.clone(), lights)
+        steps["k2_tables"] = lambda: ptk._k2_tables(ptk.scene_table(scene), lights)
     else:
-        steps["lights_and_outputs"] = lambda: ptk._lights_and_outputs(lights, s0, s1, acc)
+        steps["lights_and_outputs"] = lambda: (ptk.light_list(lights, dev), (
+            torch.empty_like(s0), torch.empty_like(s1), torch.empty_like(acc)))
     steps["gather"] = gather
     steps["readback"] = lambda: img.cpu()
     parts = {k: host_ms(fn)[0] for k, fn in steps.items()}
@@ -960,7 +960,7 @@ def seed_section():
         for blocked in (False, True):
             cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=1, seed=125, rng=rng)
             ptk.init_pt_state(cfg, "cuda", blocked)
-            pix = ptk.lane_tables(WIDTH, HEIGHT, blocked, 1, "cuda")[0]
+            pix = ptk.lane_layout(WIDTH, HEIGHT, blocked, 1, "cuda").pix
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
             try:
@@ -981,7 +981,7 @@ def seed_section():
     # at slack 0 (seed 125's last draw); the counter keys.
     kernel_ms, kernel_all = queued_ms(
         lambda: sk._launch("mwc", SEED, n, rp, None, 0, dev, sk.SLACK))
-    pix2 = ptk.lane_tables(WIDTH, HEIGHT, True, 1, "cuda")[0]
+    pix2 = ptk.lane_layout(WIDTH, HEIGHT, True, 1, "cuda").pix
     k2_ms, _ = queued_ms(
         lambda: sk._launch("mwc", SEED, n, pix2.shape[0], pix2, 0, dev, sk.SLACK))
     tail_ms, _ = queued_ms(lambda: sk._launch("mwc", 125, n, rp, None, 0, dev, 0))

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Tuple
+from typing import Any, Callable, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +52,37 @@ def device_copy(values, dtype: torch.dtype, device) -> torch.Tensor:
     a per-call copy would stall every launch that needs it. It never
     requires grad. Callers must not write to it."""
     return _device_copy(tuple(values), dtype, torch.device(device))
+
+
+# The entries ``derived`` keeps, of every kind together.
+DERIVED_ENTRIES = 32
+# (kind, static, tensors, their versions, value), the most recently used last.
+_DERIVED: list = []
+
+
+def derived(kind: str, tensors: Tuple[torch.Tensor, ...], static: Tuple, build: Callable[[], Any]):
+    """``build()``, made once and kept: a device table that launches only
+    read (a scene's packed tables, a layout's lane tables). An entry is
+    found by ``kind``, ``static`` (the static arguments, and the device
+    where no tensor names it) and ``tensors``, those it is derived from, by
+    identity; it is made again once one of them was written in place (its
+    ``_version`` moved: Adam's update, ``mul_``; an inference tensor has no
+    version and cannot be written outside inference mode). The last
+    ``DERIVED_ENTRIES`` entries used are kept. Callers must not write to
+    what it returns."""
+    versions = tuple(None if t.is_inference() else t._version for t in tensors)
+    for i, (k, s, ts, vs, value) in enumerate(_DERIVED):
+        if k == kind and s == static and len(ts) == len(tensors) and all(
+                a is b for a, b in zip(ts, tensors)):
+            del _DERIVED[i]
+            if vs == versions:
+                _DERIVED.append((k, s, ts, vs, value))
+                return value
+            break
+    value = build()
+    _DERIVED.append((kind, static, tuple(tensors), versions, value))
+    del _DERIVED[:-DERIVED_ENTRIES]
+    return value
 
 
 def _ref_is_zero_vec(e: np.ndarray) -> bool:

@@ -14,16 +14,13 @@ exactly. ``RenderConfig.soft_edges > 0`` relaxes the two step functions
 (models/smallpt.py) so that silhouettes carry gradients too.
 
 With ``config.use_kernel`` and the hard estimator, the forward runs in the
-hand-written kernel (K1, or K2 above 96 spheres). The JAX package pairs its
-Pallas forward with the VJP of its jnp path, one fused XLA program; here the
-backward of a scene of at most 96 spheres on a CUDA device is K1b
-(``kernels/pt_backward_kernel.pt_backward_cuda``), which replays the plain
-path from the same seeds and sweeps its bounces in reverse, and the camera's
-leaves get their gradient from the basis's through ``update_camera``'s
-autograd. Above 96 spheres (K2's scenes: K1b has no blocked sweep), above
-K1b's 16 recorded bounces (``max_depth > 16``) and on the CPU the backward
-is the autograd of the plain path recomputed from the same seeds. The relaxed estimator (``soft_edges > 0``) runs the plain path
-both ways.
+hand-written kernel (K1 or K2). The JAX package pairs its Pallas forward
+with the VJP of its jnp path, one fused XLA program; here the backward is
+K1b (``kernels/pt_backward_kernel.pt_backward_cuda``, which replays the
+plain path from the same seeds and sweeps its bounces in reverse) where
+``k1b_takes``, else the autograd of the plain path recomputed from the same
+seeds (``_KernelForward``). The relaxed estimator (``soft_edges > 0``) runs
+the plain path both ways.
 """
 
 from __future__ import annotations
@@ -67,14 +64,11 @@ def render_differentiable(
     gradient, ``parallel.render_sharded.l2_image_loss_sharded``).
 
     With ``config.use_kernel`` and ``soft_edges == 0`` the forward runs in
-    the kernel (``kernels/pt_kernel.render_cuda``: K1, or K2 above 96
-    spheres; on CPU tensors its plain version) and the backward in K1b on a
-    CUDA device with at most 96 spheres and 16 bounces, else it recomputes
-    ``_render_plain_diff`` from the same seeds and takes its VJP
-    (``_KernelForward``). Otherwise both directions run
-    ``_render_plain_diff``. ``soft_edges > 0`` always takes the plain path:
-    the kernels implement the hard estimator, and the relaxation must be
-    the same in forward and backward.
+    the kernel (``kernels/pt_kernel.render_cuda``; on CPU tensors its plain
+    version) and the backward as ``_KernelForward`` routes it. Otherwise
+    both directions run ``_render_plain_diff``: the kernels implement the
+    hard estimator, and the relaxation must be the same in forward and
+    backward.
 
     ``device=None`` means CUDA (and raises without a GPU); the scene and
     camera are moved there, which autograd follows."""
@@ -144,19 +138,16 @@ def _render_plain_basis(
 
 
 class _KernelForward(torch.autograd.Function):
-    """Forward: the kernel render (K1, or K2 above 96 spheres). Backward
-    (the twin of ``_render_pallas_diff_bwd``), a static route by device and
-    sphere count:
+    """Forward: the kernel render (``render_cuda``). Backward (the twin of
+    ``_render_pallas_diff_bwd``), a static route
+    (``pt_backward_kernel.k1b_takes``):
 
-    * CUDA tensors, at most ``UNROLL_MAX_SPHERES`` spheres and
-      ``max_depth`` at most K1b's record (``MAX_DEPTH`` bounces): K1b
-      (``pt_backward_cuda``: one seeding and one launch, no plain
-      ``radiance``) gives the scene's and the camera basis's gradients, and
-      ``torch.autograd.grad`` of ``update_camera`` carries the basis's to
-      the camera's ``orig`` and ``target``. A K1b build or launch that
-      fails raises;
-    * otherwise (the CPU, K2's scenes: K1b has no blocked sweep, and deeper
-      paths than its record holds):
+    * where K1b takes it: K1b (``pt_backward_cuda``: one seeding and one
+      launch, no plain ``radiance``) gives the scene's and the camera
+      basis's gradients, and ``torch.autograd.grad`` of ``update_camera``
+      carries the basis's to the camera's ``orig`` and ``target``. A K1b
+      build or launch that fails raises;
+    * otherwise (the CPU, K2's scenes, deeper paths than K1b records):
       under ``torch.enable_grad()``, ``_render_plain_diff`` re-run on
       detached copies of the leaves, from the same seeds, and
       ``torch.autograd.grad(img, leaves, grad_out)``.
@@ -181,13 +172,11 @@ class _KernelForward(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
-        from se195_raytracer_tpu_torch.kernels.pt_backward_kernel import MAX_DEPTH
-        from se195_raytracer_tpu_torch.kernels.pt_kernel import UNROLL_MAX_SPHERES
+        from se195_raytracer_tpu_torch.kernels.pt_backward_kernel import k1b_takes
 
         needs = ctx.needs_input_grad[:len(LEAVES)]
         center = ctx.saved_tensors[0]
-        if (center.device.type == "cuda" and center.shape[0] <= UNROLL_MAX_SPHERES
-                and ctx.config.max_depth <= MAX_DEPTH):
+        if k1b_takes(center.device, center.shape[0], ctx.config.max_depth, ctx.config.soft_edges):
             with span("k1b.backward"):
                 return (*_k1b_backward(ctx, grad_out, needs), None, None, None, None)
         with torch.enable_grad():

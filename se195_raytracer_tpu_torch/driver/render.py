@@ -125,11 +125,8 @@ def render(
 
     ``config.soft_edges > 0`` (the relaxed estimator) runs on the plain path
     only: with ``use_kernel`` it raises, since the kernels implement the
-    hard estimator. Gradients: ``driver.optimize.render_differentiable``."""
-    if config.soft_edges > 0.0 and config.use_kernel:
-        raise NotImplementedError(
-            "soft_edges > 0: the kernels implement the hard estimator; render the relaxed "
-            "one with use_kernel=False")
+    hard estimator (``render_cuda``). Gradients:
+    ``driver.optimize.render_differentiable``."""
     device = resolve_device(device)
     if config.use_kernel:
         from se195_raytracer_tpu_torch.kernels.pt_kernel import render_cuda

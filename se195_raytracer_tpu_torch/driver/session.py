@@ -14,8 +14,8 @@ slightly non-orthogonal; the arithmetic here is the same.
 
 Unlike the JAX session, which renders on its plain path to bound the XLA
 compiles (one program per spp), this one steps through
-``driver.render.render`` as ``config.use_kernel`` says: K1 (K2 above 96
-spheres) on the kernels' state, whose pass count is a launch argument.
+``driver.render.render`` as ``config.use_kernel`` says: K1 (K2 where
+``kernels/pt_kernel.uses_k2``) on the kernels' state, whose pass count is a launch argument.
 """
 
 from __future__ import annotations
@@ -54,10 +54,9 @@ class RenderSession:
         ``(s0, s1, acc, sample)``)."""
         if not self.config.use_kernel:
             return init_render_state(self.config, device=self.device)
-        from se195_raytracer_tpu_torch.kernels.pt_kernel import UNROLL_MAX_SPHERES, init_pt_state
+        from se195_raytracer_tpu_torch.kernels.pt_kernel import init_pt_state, uses_k2
 
-        blocked = self.scene.num_spheres > UNROLL_MAX_SPHERES
-        return init_pt_state(self.config, self.device, blocked) + (0,)
+        return init_pt_state(self.config, self.device, uses_k2(self.scene.num_spheres)) + (0,)
 
     # ---- progressive loop (idleFunc analogue) ----
 

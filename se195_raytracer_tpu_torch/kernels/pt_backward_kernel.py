@@ -30,8 +30,8 @@ import torch
 from se195_raytracer_tpu_torch.core.config import RenderConfig
 from se195_raytracer_tpu_torch.core.types import CameraBasis, Scene
 from se195_raytracer_tpu_torch.kernels._guard import refuse_grad
-from se195_raytracer_tpu_torch.kernels.pt_kernel import (UNROLL_MAX_SPHERES, device_copy, light_list,
-                                                         pack_scene)
+from se195_raytracer_tpu_torch.kernels.pt_kernel import (device_copy, light_list, pixel_range,
+                                                         scene_table, uses_k2)
 from se195_raytracer_tpu_torch.kernels.seed_kernel import seed_lanes
 
 # The bounces a lane's record holds (kMaxDepth in csrc/pt_backward_kernel.cu).
@@ -110,20 +110,6 @@ def running_mean_weights_tensor(spp: int, device) -> torch.Tensor:
     return device_copy(running_mean_weights(spp), torch.float32, device)
 
 
-def _flat_cotangent(grad_out: torch.Tensor, lanes: int) -> torch.Tensor:
-    if grad_out.numel() != 3 * lanes:
-        raise ValueError(f"grad_out: need {lanes} x 3 values, got {tuple(grad_out.shape)}")
-    return grad_out.reshape(lanes, 3)
-
-
-def _range(config: RenderConfig, pixels: Optional[Tuple[int, int]]) -> Tuple[int, int]:
-    n = config.width * config.height
-    lo, hi = (0, n) if pixels is None else pixels
-    if not 0 <= lo < hi <= n:
-        raise ValueError(f"pixels={pixels}: a range inside 0..{n}")
-    return lo, hi
-
-
 def pt_backward_reference(scene: Scene, basis: CameraBasis, config: RenderConfig,
                           grad_out: torch.Tensor, pixels: Optional[Tuple[int, int]] = None,
                           image: bool = False):
@@ -134,7 +120,7 @@ def pt_backward_reference(scene: Scene, basis: CameraBasis, config: RenderConfig
     also returns the primal ([hi - lo, 3] rows)."""
     from se195_raytracer_tpu_torch.driver.optimize import _render_plain_basis
 
-    lo, hi = _range(config, pixels)
+    lo, hi = pixel_range(config, pixels)
     leaves = [t.detach().requires_grad_(True) for t in
               (scene.center, scene.radius, scene.emission, scene.color,
                basis.orig, basis.dir, basis.x, basis.y)]
@@ -149,38 +135,48 @@ def pt_backward_reference(scene: Scene, basis: CameraBasis, config: RenderConfig
     return flat
 
 
+def k1b_takes(device, num_spheres: int, max_depth: int, soft_edges: float) -> bool:
+    """Whether K1b takes the backward of a render on ``device`` of
+    ``num_spheres`` spheres, ``max_depth`` bounces and ``soft_edges``: a
+    CUDA device, K1's scenes (``uses_k2`` false: K1b has no blocked sweep),
+    the bounces its record holds and the hard estimator.
+    ``pt_backward_cuda`` refuses the rest, for which
+    ``driver.optimize._KernelForward`` recomputes the plain path."""
+    return (torch.device(device).type == "cuda" and not uses_k2(num_spheres)
+            and 1 <= max_depth <= MAX_DEPTH and soft_edges == 0.0)
+
+
 def pt_backward_cuda(scene: Scene, basis: CameraBasis, config: RenderConfig,
                      grad_out: torch.Tensor, pixels: Optional[Tuple[int, int]] = None,
                      image: bool = False):
     """K1b: the gradient of ``sum(grad_out * _render_plain_diff(...))`` with
     respect to the scene's center, radius, emission and color and the
-    camera basis, flat in ``pack_grad``'s layout, for the hard estimator
-    and at most ``UNROLL_MAX_SPHERES`` spheres. ``grad_out`` is [H, W, 3],
-    or [hi - lo, 3] with ``pixels=(lo, hi)`` (the rows of a shard).
+    camera basis, flat in ``pack_grad``'s layout, where ``k1b_takes``.
+    ``grad_out`` is [H, W, 3], or [hi - lo, 3] with ``pixels=(lo, hi)``
+    (the rows of a shard).
 
     Seeds the lanes once (``seed_lanes``, the plain path's layout: lane i
     is pixel lo + i) and launches the kernel on the current stream (its
-    reduction in the same call). CUDA tensors only: anything else raises,
+    reduction in the same call), on ``scene_table``'s table (the
+    forward's, for an unchanged scene). What ``k1b_takes`` refuses raises,
     as does a refused launch. ``image`` also returns the kernel's replayed
     primal, [hi - lo, 3], the plain path's image bit for bit. Counts its
     calls in ``pt_backward_cuda.launches``."""
     refuse_grad("pt_backward_cuda", scene, basis, grad_out)
     dev = scene.center.device
-    if dev.type != "cuda":
-        raise ValueError(f"pt_backward_cuda: CUDA tensors only, got {dev}; on the CPU take "
-                         "pt_backward_reference")
-    if config.soft_edges != 0.0:
-        raise NotImplementedError("pt_backward_cuda computes the hard estimator's gradient")
     n = scene.num_spheres
-    if n > UNROLL_MAX_SPHERES:
-        raise ValueError(f"pt_backward_cuda takes at most {UNROLL_MAX_SPHERES} spheres, got {n}")
-    if not 1 <= config.max_depth <= MAX_DEPTH:
-        raise ValueError(f"max_depth {config.max_depth}: K1b records 1..{MAX_DEPTH} bounces")
-    lo, hi = _range(config, pixels)
+    if not k1b_takes(dev, n, config.max_depth, config.soft_edges):
+        raise ValueError(
+            f"pt_backward_cuda: CUDA tensors only, K1's scenes, max_depth 1..{MAX_DEPTH} and the "
+            f"hard estimator; got {n} spheres on {dev}, max_depth {config.max_depth}, soft_edges "
+            f"{config.soft_edges}. Elsewhere take pt_backward_reference")
+    lo, hi = pixel_range(config, pixels)
     lanes = hi - lo
-    tab = pack_scene(scene)
+    tab = scene_table(scene)
     cam = torch.cat([basis.orig, basis.dir, basis.x, basis.y]).contiguous()
-    g = _flat_cotangent(grad_out, lanes).contiguous()
+    if grad_out.numel() != 3 * lanes:
+        raise ValueError(f"grad_out: need {lanes} x 3 values, got {tuple(grad_out.shape)}")
+    g = grad_out.reshape(lanes, 3).contiguous()
     for name, t in (("scene", tab), ("basis", cam), ("grad_out", g)):
         if t.device != dev or t.dtype != torch.float32:
             raise ValueError(f"{name}: need float32 on {dev}, got {t.dtype} on {t.device}")

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +43,7 @@ from se195_raytracer_tpu_torch.core.types import (
     Camera,
     CameraBasis,
     Scene,
+    derived,
     device_copy,
     dot3,
     resolve_device,
@@ -79,6 +80,13 @@ _MAX_SMEM_BYTES = 227 * 1024
 PTState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]
 
 
+def uses_k2(num_spheres: int) -> bool:
+    """Whether a scene of ``num_spheres`` spheres renders in K2 and its
+    blocked lane layout, or in K1 and the identity layout: every route
+    through the two kernels asks this."""
+    return num_spheres > UNROLL_MAX_SPHERES
+
+
 def pack_scene(scene: Scene) -> torch.Tensor:
     """[12, N] float32 scene table. Row 11 is the emissive flag: the
     reference's viszero test (vec.h:44, y-bug included), baked host-side
@@ -97,6 +105,13 @@ def pack_scene(scene: Scene) -> torch.Tensor:
         ],
         dim=0,
     ).contiguous()
+
+
+def scene_table(scene: Scene) -> torch.Tensor:
+    """``pack_scene(scene)``, kept per scene (``derived``), so that a render
+    of an unchanged scene packs nothing and finds K2's tables built."""
+    return derived("scene_table", (scene.center, scene.radius, scene.emission, scene.color,
+                                   scene.refl), (scene.light_indices,), lambda: pack_scene(scene))
 
 
 def pack_camera(basis: CameraBasis) -> torch.Tensor:
@@ -224,24 +239,48 @@ def ray_layout(width: int, height: int, blocked: bool = False, tile_multiple: in
     return rp, pix, inv
 
 
-_LANE_TABLES: Dict[Tuple, Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]] = {}
+class Layout(NamedTuple):
+    """``ray_layout`` on a device: ``rp`` lanes, ``pix`` int32 [rp] lane ->
+    pixel and ``inv`` int64 [W*H] pixel -> lane (None for the identity)."""
+
+    blocked: bool
+    rp: int
+    pix: Optional[torch.Tensor]
+    inv: Optional[torch.Tensor]
+
+    def lanes(self, lo: int, hi: int):
+        """(pix, lane_offset) of lanes lo..hi-1 for ``pt_multi_pass`` and
+        ``seed_lanes``: K2's slice of the pix table, or K1's first lane."""
+        return (self.pix[lo:hi], 0) if self.blocked else (None, lo)
+
+    def seed(self, config, lo: int, hi: int, device) -> Tuple[torch.Tensor, ...]:
+        """Fresh (s0, s1, acc [3, (hi - lo) / 128, 128]) of lanes lo..hi-1,
+        seeded by ``seed_lanes`` from the whole frame's stream."""
+        pix, offset = self.lanes(lo, hi)
+        s0, s1 = seed_lanes(config.rng, config.seed, config.width * config.height, hi - lo,
+                            pix=pix, lane_offset=offset, device=device)
+        acc = torch.zeros((3, (hi - lo) // LANES, LANES), dtype=torch.float32, device=device)
+        return s0, s1, acc
+
+    def image(self, acc: torch.Tensor, width: int, height: int) -> torch.Tensor:
+        """The [H, W, 3] image of a whole frame's acc [3, ...]."""
+        flat = acc.reshape(3, -1)
+        flat = flat[:, self.inv] if self.blocked else flat[:, :width * height]
+        return flat.T.reshape(height, width, 3)
 
 
-def lane_tables(width: int, height: int, blocked: bool, tile_multiple: int, device):
-    """(pix, inv) of ``ray_layout`` on ``device``, copied there once per
-    (width, height, blocked, tile_multiple, device) and kept: int32 [Rp]
-    lane -> pixel ids and int64 [W*H] pixel -> lane, both None for the
-    identity layout. The kernels and the seeding only read them."""
-    key = (width, height, blocked, tile_multiple, str(torch.device(device)))
-    hit = _LANE_TABLES.get(key)
-    if hit is None:
-        if len(_LANE_TABLES) >= 32:
-            _LANE_TABLES.pop(next(iter(_LANE_TABLES)))
-        _, pix, inv = ray_layout(width, height, blocked, tile_multiple)
-        hit = _LANE_TABLES[key] = (
-            (torch.from_numpy(pix).to(device), torch.from_numpy(inv).to(device))
-            if blocked else (None, None))
-    return hit
+def lane_layout(width: int, height: int, blocked: bool, tile_multiple: int, device) -> Layout:
+    """``ray_layout``'s layout, its tables copied to ``device`` once per key
+    and kept (``derived``)."""
+    device = torch.device(device)
+
+    def build():
+        rp, pix, inv = ray_layout(width, height, blocked, tile_multiple)
+        if not blocked:
+            return Layout(False, rp, None, None)
+        return Layout(True, rp, torch.from_numpy(pix).to(device), torch.from_numpy(inv).to(device))
+
+    return derived("lane_layout", (), (width, height, blocked, tile_multiple, str(device)), build)
 
 
 def pt_pass_reference(
@@ -419,8 +458,12 @@ def _smem_bytes(n: int, table_floats: int, n_lights: int) -> int:
     return smem
 
 
-def _check_cuda_inputs(scene_tab, cam_tab, s0, s1, acc, light_indices, table_floats):
+def _check_cuda_inputs(scene_tab, cam_tab, s0, s1, acc, light_indices, table_floats, rng):
     dev = s0.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if rng not in ("mwc", "counter"):
+        raise ValueError(f"unknown rng {rng!r}")
     for name, t, dtype in (
         ("scene_tab", scene_tab, torch.float32),
         ("cam_tab", cam_tab, torch.float32),
@@ -462,9 +505,9 @@ def pt_multi_pass(
     rng: str = "mwc",
     lane_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``num_samples`` progressive passes in ONE kernel launch: K1 (here) for
-    at most ``UNROLL_MAX_SPHERES`` spheres, else K2 (``pt_blocked_pass``,
-    which needs ``pix``). K1 takes the identity layout: ``pix`` must be None,
+    """``num_samples`` progressive passes in ONE kernel launch: K2
+    (``pt_blocked_pass``, which needs ``pix``) where ``uses_k2``, else K1
+    (here). K1 takes the identity layout: ``pix`` must be None,
     and lane i traces pixel ``lane_offset + i`` (a shard of a sharded render
     passes the absolute id of its first lane). K2 reads absolute pixel ids
     from ``pix`` and takes no offset.
@@ -479,7 +522,7 @@ def pt_multi_pass(
         max_depth=max_depth, direct_only=direct_only,
         light_indices=tuple(light_indices), rng=rng,
     )
-    if scene_tab.shape[1] > UNROLL_MAX_SPHERES:
+    if uses_k2(scene_tab.shape[1]):
         if pix is None:
             raise ValueError("K2 needs the lane -> pixel table pix of ray_layout(blocked=True)")
         if lane_offset:
@@ -491,12 +534,12 @@ def pt_multi_pass(
         return pt_pass_reference(scene_tab, cam_tab, start_sample, s0, s1, acc,
                                  lane_offset=lane_offset, **kw)
     with span("pt.launch"):
-        _check_launch(s0, rng)
         # K1's shared memory: a (center, radius) record per sphere and the table.
         _check_cuda_inputs(scene_tab, cam_tab, s0, s1, acc, light_indices,
-                           16 * scene_tab.shape[1])
+                           16 * scene_tab.shape[1], rng)
         lib = _kernel_lib()
-        lights, outs = _lights_and_outputs(light_indices, s0, s1, acc)
+        lights = light_list(light_indices, s0.device)
+        outs = (torch.empty_like(s0), torch.empty_like(s1), torch.empty_like(acc))
         err = lib.pt_multi_pass_cuda(
             scene_tab.data_ptr(), scene_tab.shape[1], lights.data_ptr(), len(light_indices),
             cam_tab.data_ptr(), int(start_sample), int(num_samples),
@@ -547,14 +590,13 @@ def pt_blocked_pass(
     )
     if s0.device.type == "cpu":
         return pt_pass_reference(scene_tab, cam_tab, start_sample, s0, s1, acc, pix, **kw)
-    _check_launch(s0, rng)
     halves, bounds, groups, rest, lights = _k2_tables(scene_tab, tuple(light_indices))
     with span("pt.launch"):
         nb, ng = bounds.shape[1], groups.shape[1]
         # K2's shared memory: a (center, radius) record per sphere and per
         # half block, block and group bound.
         _check_cuda_inputs(scene_tab, cam_tab, s0, s1, acc, light_indices,
-                           4 * (scene_tab.shape[1] + 3 * nb + ng))
+                           4 * (scene_tab.shape[1] + 3 * nb + ng), rng)
         if pix.device != s0.device or pix.dtype != torch.int32 or pix.shape != s0.shape:
             raise ValueError(f"pix: need int32 [{s0.shape[0]}] on {s0.device}")
         pix = pix.contiguous()
@@ -577,48 +619,24 @@ def pt_blocked_pass(
 pt_blocked_pass.launches = 0
 
 
-_K2_TABLES = {}
-
-
 def _k2_tables(scene_tab: torch.Tensor, light_indices: Tuple[int, ...]):
     """(half-block, block, group and remainder bounds, int32 light list) of a
-    scene table on its device, made once per table (held here, so its id
-    stays unique; remade if the table was written to): the bounds are ~30
-    small ops. The light list is ``light_list``'s, kept across tables, so a
-    miss copies nothing from the host. Spans ``pt.k2_tables`` the lookup and
-    ``pt.k2_tables.build`` a miss."""
+    scene table, kept per table and light tuple (``derived``; a render's
+    table is ``scene_table``'s). A build is ~30 small ops and no host copy.
+    Spans ``pt.k2_tables`` the lookup and ``pt.k2_tables.build`` a build."""
+
+    def build():
+        with span("pt.k2_tables.build"):
+            return (half_bounds(scene_tab), block_bounds(scene_tab), group_bounds(scene_tab),
+                    remainder_bound(scene_tab), light_list(light_indices, scene_tab.device))
+
     with span("pt.k2_tables"):
-        key = id(scene_tab)
-        hit = _K2_TABLES.get(key)
-        if hit is None or hit[1] != scene_tab._version or hit[2] != light_indices:
-            with span("pt.k2_tables.build"):
-                if len(_K2_TABLES) >= 8:
-                    _K2_TABLES.pop(next(iter(_K2_TABLES)))
-                lights = light_list(light_indices, scene_tab.device)
-                hit = _K2_TABLES[key] = (scene_tab, scene_tab._version, light_indices,
-                                         half_bounds(scene_tab), block_bounds(scene_tab),
-                                         group_bounds(scene_tab), remainder_bound(scene_tab),
-                                         lights)
-        return hit[3:]
-
-
-def _check_launch(s0, rng):
-    if s0.device.type != "cuda":
-        raise ValueError(f"unsupported device {s0.device}")
-    if rng not in ("mwc", "counter"):
-        raise ValueError(f"unknown rng {rng!r}")
+        return derived("k2_tables", (scene_tab,), (tuple(light_indices),), build)
 
 
 def light_list(light_indices, device) -> torch.Tensor:
     """The int32 light list on ``device`` (``device_copy``)."""
     return device_copy(light_indices, torch.int32, device)
-
-
-def _lights_and_outputs(light_indices, s0, s1, acc):
-    """K1's light list on the state's device (``light_list``) and fresh
-    outputs."""
-    return light_list(light_indices, s0.device), (torch.empty_like(s0), torch.empty_like(s1),
-                                                  torch.empty_like(acc))
 
 
 def _frame_args(s0, width, height, max_depth, direct_only, rng):
@@ -658,18 +676,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def init_pt_state(config, device, blocked: bool = False,
                   tile_multiple: int = 1) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Fresh (s0, s1, acc) over the Rp lanes of ``ray_layout`` on ``device``,
-    seeded by ``seed_lanes``: on a CUDA device in the seed kernel, the
-    words laid out in lane order where they are made. The real pixels get
-    the seeds the plain path gives them and the pad lanes the inert seed 2
-    (the least valid MWC seed; for the counter RNG key = ctr = 2), as
-    render_pallas does: bitwise ``init_pt_state_host``."""
-    w, h = config.width, config.height
-    rp = ray_layout(w, h, blocked, tile_multiple)[0]
-    pix = lane_tables(w, h, blocked, tile_multiple, device)[0]
-    s0, s1 = seed_lanes(config.rng, config.seed, w * h, rp, pix=pix, device=device)
-    acc = torch.zeros((3, rp // LANES, LANES), dtype=torch.float32, device=device)
-    return s0, s1, acc
+    """Fresh (s0, s1, acc) over the Rp lanes of ``lane_layout`` on
+    ``device`` (``Layout.seed``; the seed kernel on a CUDA device). The real
+    pixels get the plain path's seeds and the pad lanes the inert seed 2
+    (the least valid MWC seed; counter key = ctr = 2), as render_pallas
+    does: bitwise ``init_pt_state_host``."""
+    layout = lane_layout(config.width, config.height, blocked, tile_multiple, device)
+    return layout.seed(config, 0, layout.rp, device)
 
 
 def init_pt_state_host(config, device, blocked: bool = False,
@@ -690,6 +703,57 @@ def init_pt_state_host(config, device, blocked: bool = False,
     return s0.to(device), s1.to(device), acc
 
 
+def pixel_range(config, pixels: Optional[Tuple[int, int]]) -> Tuple[int, int]:
+    """(lo, hi) of ``pixels``, the whole frame for None; raises outside it."""
+    n = config.width * config.height
+    lo, hi = (0, n) if pixels is None else pixels
+    if not 0 <= lo < hi <= n:
+        raise ValueError(f"pixels={pixels}: a range inside 0..{n}")
+    return lo, hi
+
+
+class Frame(NamedTuple):
+    """The kernels' inputs for a render (``prepare_frame``)."""
+
+    layout: Layout
+    scene_tab: torch.Tensor
+    cam_tab: torch.Tensor
+    light_indices: Tuple[int, ...]
+
+
+def prepare_frame(scene: Scene, camera: Camera, config, shards: int, device) -> Frame:
+    """The kernels' inputs for a render of ``scene`` through ``camera`` (on
+    ``device``) in ``shards`` shards of whole tiles: the layout of the
+    kernel ``uses_k2`` picks, the scene's table and the camera's row (made
+    per call). Spans ``pt.pack_scene`` and ``pt.camera``. The relaxed
+    estimator raises: the kernels implement the hard one."""
+    if config.soft_edges > 0.0:
+        raise NotImplementedError(
+            "soft_edges > 0: K1 and K2 implement the hard estimator; render the relaxed "
+            "one on the plain path (use_kernel=False, render_sharded)")
+    w, h = config.width, config.height
+    layout = lane_layout(w, h, uses_k2(scene.num_spheres), shards, device)
+    with span("pt.pack_scene"):
+        scene_tab = scene_table(scene)
+    with span("pt.camera"):
+        cam_tab = pack_camera(update_camera(camera, w, h))
+    return Frame(layout, scene_tab, cam_tab, scene.light_indices)
+
+
+def trace_lanes(frame: Frame, config, spp: int, state: PTState, pix: Optional[torch.Tensor],
+                lane_offset: int) -> PTState:
+    """``spp`` passes from ``state`` over the lanes ``pix`` or
+    ``lane_offset`` name, in one ``pt_multi_pass`` launch."""
+    s0, s1, acc, start = state
+    s0, s1, acc = pt_multi_pass(
+        frame.scene_tab, frame.cam_tab, start, s0, s1, acc, pix,
+        num_samples=spp, width=config.width, height=config.height, max_depth=config.max_depth,
+        direct_only=config.integrator == "dl", light_indices=frame.light_indices,
+        rng=config.rng, lane_offset=lane_offset,
+    )
+    return s0, s1, acc, start + spp
+
+
 def render_cuda(
     scene: Scene,
     camera: Camera,
@@ -699,8 +763,8 @@ def render_cuda(
     device=None,
     pixels: Optional[Tuple[int, int]] = None,
 ):
-    """Progressive render through K1, or K2 above ``UNROLL_MAX_SPHERES``
-    spheres (twin of ``render_pallas``).
+    """Progressive render through K1, or K2 where ``uses_k2`` (twin of
+    ``render_pallas``).
 
     Returns (image [H, W, 3] float32, (s0, s1, acc, sample) state). On a
     CUDA device the passes run in the kernel; on the CPU in its plain
@@ -714,55 +778,30 @@ def render_cuda(
     the image: the forward of a shard of a sharded differentiable render.
 
     Under a profiler session the call is a ``pt.render`` span holding
-    ``pt.seed``, ``pt.pack_scene``, ``pt.camera`` (``update_camera`` and
-    ``pack_camera``), K2's ``pt.k2_tables``, ``pt.launch`` and
+    ``pt.pack_scene``, ``pt.camera`` (``update_camera`` and
+    ``pack_camera``), ``pt.seed``, K2's ``pt.k2_tables``, ``pt.launch`` and
     ``pt.gather`` (``utils.profiling.span``)."""
-    if config.soft_edges > 0.0:
-        raise NotImplementedError(
-            "soft_edges > 0: K1 and K2 implement the hard estimator; render the relaxed "
-            "one with use_kernel=False")
     refuse_grad("render_cuda", scene, camera, None if state is None else state[2])
     with span("pt.render"):
         device = resolve_device(device)
-        scene, camera = scene.to(device), camera.to(device)
-        w, h = config.width, config.height
-        r = w * h
+        frame = prepare_frame(scene.to(device), camera.to(device), config, 1, device)
+        layout, r = frame.layout, config.width * config.height
         spp = config.spp if num_samples is None else num_samples
-        blocked = scene.num_spheres > UNROLL_MAX_SPHERES
-        lane_offset = 0
         if pixels is None:
-            pix, inv = lane_tables(w, h, blocked, 1, device)
             if state is None:
                 with span("pt.seed"):
-                    state = init_pt_state(config, device, blocked) + (0,)
-        else:
-            lo, hi = pixels
-            if state is not None or not 0 <= lo < hi <= r:
-                raise ValueError(f"pixels={pixels}: a range inside 0..{r}, rendered from fresh "
-                                 "seeds (state=None)")
-            with span("pt.seed"):
-                s0, s1 = seed_lanes(config.rng, config.seed, r, hi - lo, lane_offset=lo,
-                                    device=device)
-                acc = torch.zeros((3, hi - lo), dtype=torch.float32, device=device)
-            state = (s0, s1, acc, 0)
-            pix = torch.arange(lo, hi, dtype=torch.int32, device=device) if blocked else None
-            lane_offset = 0 if blocked else lo
-        s0, s1, acc, start = state
-        with span("pt.pack_scene"):
-            scene_tab = pack_scene(scene)
-        with span("pt.camera"):
-            cam_tab = pack_camera(update_camera(camera, w, h))
-
-        s0, s1, acc = pt_multi_pass(
-            scene_tab, cam_tab, start, s0, s1, acc, pix,
-            num_samples=spp, width=w, height=h, max_depth=config.max_depth,
-            direct_only=config.integrator == "dl",
-            light_indices=scene.light_indices, rng=config.rng, lane_offset=lane_offset,
-        )
-        state = (s0, s1, acc, start + spp)
+                    state = init_pt_state(config, device, layout.blocked) + (0,)
+            state = trace_lanes(frame, config, spp, state, *layout.lanes(0, layout.rp))
+            with span("pt.gather"):
+                return layout.image(state[2], config.width, config.height), state
+        if state is not None:
+            raise ValueError(f"pixels={pixels}: rendered from fresh seeds (state=None)")
+        lo, hi = pixel_range(config, pixels)
+        with span("pt.seed"):
+            s0, s1 = seed_lanes(config.rng, config.seed, r, hi - lo, lane_offset=lo,
+                                device=device)
+            acc = torch.zeros((3, hi - lo), dtype=torch.float32, device=device)
+        pix = torch.arange(lo, hi, dtype=torch.int32, device=device) if layout.blocked else None
+        state = trace_lanes(frame, config, spp, (s0, s1, acc, 0), pix, 0 if pix is not None else lo)
         with span("pt.gather"):
-            if pixels is not None:
-                return acc.T, state
-            flat = acc.reshape(3, -1)
-            flat = flat[:, inv] if blocked else flat[:, :r]
-            return flat.T.reshape(h, w, 3), state
+            return state[2].T, state

@@ -34,6 +34,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from se195_raytracer_tpu_torch.core.types import derived
 from se195_raytracer_tpu_torch.kernels._guard import refuse_grad
 from se195_raytracer_tpu_torch.kernels.texel_kernel import kernel_lib, pack_texel_units
 from se195_raytracer_tpu_torch.models.whitted5 import (
@@ -47,7 +48,7 @@ from se195_raytracer_tpu_torch.models.whitted5 import (
     samples_per_level,
     trace_passes,
 )
-from se195_raytracer_tpu_torch.scenes.whitted5_scenes import BOX5, Whitted5Scene
+from se195_raytracer_tpu_torch.scenes.whitted5_scenes import BOX5, FIELDS, Whitted5Scene
 from se195_raytracer_tpu_torch.utils.profiling import span
 
 # Deepest tree the kernel's per-thread node slots hold (kMaxDepth).
@@ -85,33 +86,25 @@ def pack_whitted5_scene(scene: Whitted5Scene) -> torch.Tensor:
     ).to(torch.float32).contiguous()
 
 
-def pack_whitted5_aux(scene: Whitted5Scene) -> Tuple[torch.Tensor, torch.Tensor]:
-    """([3, N] int32 rows type, light flag, texture id; [2, N] float32 uv
-    scales), the per-primitive tables K4 keeps beside the [27, N] one."""
-    aux = torch.tensor([list(scene.ptype), [int(x) for x in scene.is_light], list(scene.tex_id)],
-                       dtype=torch.int32, device=scene.device)
-    return aux, scene.uv_scale.T.contiguous()
-
-
-# The packed tables of the last few scenes, by id, with the scene itself
-# held so that the id stays its own: a render makes no host-to-device copy
-# once its scene is packed.
-_PACKED = {}
-
-
 def _packed(scene: Whitted5Scene):
-    """The scene's packed tables, in span ``w5.tables``, with
-    ``w5.tables.build`` inside it on a miss."""
+    """The scene's packed tables, made once per scene and kept
+    (``derived``: its tensors and textures by identity and version, its
+    static structure), so that a render makes no host-to-device copy once
+    its scene is packed; in span ``w5.tables``, with ``w5.tables.build``
+    inside it on a build."""
+
+    def build():
+        with span("w5.tables.build"):
+            # Beside the [27, N] table: [3, N] int32 rows type, light flag and
+            # texture id, the [2, N] uv scales and the texel units.
+            aux = torch.tensor([list(scene.ptype), [int(x) for x in scene.is_light],
+                                list(scene.tex_id)], dtype=torch.int32, device=scene.device)
+            return (pack_whitted5_scene(scene), aux, scene.uv_scale.T.contiguous(),
+                    pack_texel_units(scene.textures, scene.device))
+
     with span("w5.tables"):
-        hit = _PACKED.get(id(scene))
-        if hit is None or hit[0] is not scene:
-            with span("w5.tables.build"):
-                if len(_PACKED) >= 8:
-                    _PACKED.pop(next(iter(_PACKED)))
-                aux, uvs = pack_whitted5_aux(scene)
-                texels = pack_texel_units(scene.textures, scene.device)
-                hit = _PACKED[id(scene)] = (scene, pack_whitted5_scene(scene), aux, uvs, texels)
-        return hit[1:]
+        return derived("w5.tables", tuple(getattr(scene, f) for f in FIELDS) + scene.textures,
+                       (scene.ptype, scene.is_light, scene.tex_id), build)
 
 
 def box_records(scene: Whitted5Scene) -> Tuple[Tuple[int, ...], torch.Tensor]:

@@ -34,7 +34,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from se195_raytracer_tpu_torch.core.types import resolve_device
+from se195_raytracer_tpu_torch.core.types import derived, resolve_device
 from se195_raytracer_tpu_torch.kernels._guard import refuse_grad
 from se195_raytracer_tpu_torch.models.whitted import (
     TAPS,
@@ -45,7 +45,7 @@ from se195_raytracer_tpu_torch.models.whitted import (
     whitted_trace,
     window_steps,
 )
-from se195_raytracer_tpu_torch.scenes.whitted_scenes import WhittedScene
+from se195_raytracer_tpu_torch.scenes.whitted_scenes import FIELDS, WhittedScene
 
 LANES = 128
 # Rays of the explicit entry are padded to whole 8 x 128 tiles, as the JAX
@@ -113,23 +113,22 @@ def tap_lists(ptype, is_light) -> Tuple[list, int, int]:
     return lights + spheres + planes, len(lights), len(spheres) + len(planes)
 
 
-_PACKED = {}
-
-
 def _packed(scene: WhittedScene):
     """(table, light flags, default camera row, the taps' lists as a tensor,
-    nl, no) on the scene's device, made once per scene: the copies to the
-    device would otherwise stall each launch."""
-    hit = _PACKED.get(id(scene))
-    if hit is None or hit[0] is not scene:
-        if len(_PACKED) >= 8:
-            _PACKED.pop(next(iter(_PACKED)))
+    nl, no) on the scene's device, made once per scene and kept
+    (``derived``: its tensors by identity and version, its static
+    structure): the copies to the device would otherwise stall each
+    launch."""
+
+    def build():
         light = torch.tensor(scene.is_light, dtype=torch.int32, device=scene.device)
         cam = torch.from_numpy(whitted_camera_row()).to(scene.device)
         lists, nl, no = tap_lists(scene.ptype, scene.is_light)
         lists = torch.tensor(lists or [0], dtype=torch.int32, device=scene.device)
-        hit = _PACKED[id(scene)] = (scene, pack_whitted_scene(scene), light, cam, lists, nl, no)
-    return hit[1:]
+        return pack_whitted_scene(scene), light, cam, lists, nl, no
+
+    return derived("k3.tables", tuple(getattr(scene, f) for f in FIELDS),
+                   (scene.ptype, scene.is_light), build)
 
 
 _TAP_WORK: Dict[Tuple[int, int], torch.Tensor] = {}

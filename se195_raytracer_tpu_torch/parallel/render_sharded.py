@@ -27,7 +27,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from se195_raytracer_tpu_torch.core.config import RenderConfig
-from se195_raytracer_tpu_torch.core.types import Camera, Scene, update_camera
+from se195_raytracer_tpu_torch.core.types import Camera, Scene
 from se195_raytracer_tpu_torch.driver.render import RenderState, render_steps
 from se195_raytracer_tpu_torch.kernels.seed_kernel import seed_lanes
 from se195_raytracer_tpu_torch.parallel.mesh import (
@@ -70,27 +70,6 @@ def _local(t: torch.Tensor, mesh: Mesh, dim: int = 0):
     local shards' lanes in shard order."""
     per = t.shape[dim] // len(mesh.local_shards)
     return [t.narrow(dim, i * per, per) for i in range(len(mesh.local_shards))]
-
-
-def _frame_part(t: torch.Tensor, mesh: Mesh, dim: int = 0) -> torch.Tensor:
-    """The lanes of this process's shards of a whole-frame tensor ``t``."""
-    if not mesh.process_group:
-        return t
-    (k,) = mesh.local_shards
-    per = t.shape[dim] // mesh.size
-    return t.narrow(dim, k * per, per)
-
-
-def shard_render_state(state: RenderState, mesh: Mesh) -> RenderState:
-    """A whole-frame plain-path state as ``render_sharded`` holds it: the
-    lanes of this process's shards, on the device of its first shard."""
-    dev = mesh.devices[mesh.local_shards[0]]
-    return RenderState(
-        accum=_frame_part(state.accum, mesh).to(dev),
-        s0=_frame_part(state.s0, mesh).to(dev),
-        s1=_frame_part(state.s1, mesh).to(dev),
-        sample=state.sample,
-    )
 
 
 def render_sharded(
@@ -139,74 +118,47 @@ def render_cuda_sharded(
     mesh: Optional[Mesh] = None,
     state=None,
 ):
-    """Progressive render through K1 (K2 above 96 spheres) with the lanes
-    sharded over ``mesh`` (twin of ``render_pallas_sharded``): one launch
-    per shard. The layout is ``ray_layout(..., tile_multiple=mesh.size)``,
-    so every shard holds whole 16 x 128 tiles; each shard seeds only its own
-    lanes, on its own device, from the whole frame's stream (``seed_lanes``;
-    the seed kernel on a CUDA device). A K1 shard passes its first lane as
-    the lane offset, a K2 shard its slice of the pix table; both trace
-    absolute pixel ids, so the image is bitwise ``render_cuda``'s.
+    """Progressive render through K1 or K2 with the lanes sharded over
+    ``mesh`` (twin of ``render_pallas_sharded``): one launch per shard, on
+    each device ``render_cuda``'s frame (``prepare_frame``) in whole tiles
+    a shard. Each shard seeds only its own lanes, on its own device, from
+    the whole frame's stream (``Layout.seed``), and traces absolute pixel
+    ids, so the image is bitwise ``render_cuda``'s.
 
     Returns ([H, W, 3] radiance, (s0, s1, acc, sample)); the state holds
     the lanes of this process's shards. CPU tensors run the kernels' plain
     version."""
-    from se195_raytracer_tpu_torch.kernels.pt_kernel import (
-        LANES,
-        UNROLL_MAX_SPHERES,
-        lane_tables,
-        pack_camera,
-        pack_scene,
-        pt_multi_pass,
-        ray_layout,
-    )
+    from se195_raytracer_tpu_torch.kernels.pt_kernel import LANES, prepare_frame, trace_lanes
 
-    if config.soft_edges > 0.0:
-        raise NotImplementedError(
-            "soft_edges > 0: K1 and K2 implement the hard estimator; render the relaxed "
-            "one with render_sharded")
     if mesh is None:
         mesh = make_mesh()
-    w, h = config.width, config.height
-    blocked = scene.num_spheres > UNROLL_MAX_SPHERES
-    rp = ray_layout(w, h, blocked, mesh.size)[0]
-    per = rp // mesh.size
     scenes, cams = replicate(scene, mesh), replicate(camera, mesh)
-    tabs = {dev: (pack_scene(scenes[dev]), pack_camera(update_camera(cams[dev], w, h)),
-                  lane_tables(w, h, blocked, mesh.size, dev)) for dev in scenes}
+    frames = {dev: prepare_frame(scenes[dev], cams[dev], config, mesh.size, dev)
+              for dev in scenes}
+    dev0 = mesh.devices[mesh.local_shards[0]]
+    layout = frames[dev0].layout
+    per = layout.rp // mesh.size
     if state is None:
         # Each shard seeds only its own lanes, on its own device.
-        parts, start = [], 0
-        for k in mesh.local_shards:
-            dev, lo = mesh.devices[k], k * per
-            pix = tabs[dev][2][0][lo:lo + per] if blocked else None
-            s0k, s1k = seed_lanes(config.rng, config.seed, w * h, per, pix=pix,
-                                  lane_offset=0 if blocked else lo, device=dev)
-            parts.append((s0k, s1k, torch.zeros((3, per), dtype=torch.float32, device=dev)))
+        parts, start = [frames[mesh.devices[k]].layout.seed(config, k * per, (k + 1) * per,
+                                                            mesh.devices[k])
+                        for k in mesh.local_shards], 0
     else:
         s0, s1, acc, start = state
         parts = zip(_local(s0, mesh), _local(s1, mesh), _local(acc.reshape(3, -1), mesh, dim=1))
     outs = []
     for k, (s0k, s1k, acck) in zip(mesh.local_shards, parts):
         dev = mesh.devices[k]
-        lo = k * per
-        scene_tab, cam_tab, (pix_all, inv) = tabs[dev]
-        pix = pix_all[lo:lo + per] if blocked else None
-        outs.append(pt_multi_pass(
-            scene_tab, cam_tab, start, s0k.to(dev).contiguous(), s1k.to(dev).contiguous(),
-            acck.to(dev).contiguous().reshape(3, per // LANES, LANES), pix,
-            num_samples=config.spp, width=w, height=h, max_depth=config.max_depth,
-            direct_only=config.integrator == "dl", light_indices=scene.light_indices,
-            rng=config.rng, lane_offset=0 if blocked else lo,
-        ))
-    dev0 = mesh.devices[mesh.local_shards[0]]
-    flat = gather_shards([o[2].reshape(3, per) for o in outs], mesh, dim=1)
-    flat = flat[:, tabs[dev0][2][1]] if blocked else flat[:, :w * h]
+        shard = (s0k.to(dev).contiguous(), s1k.to(dev).contiguous(),
+                 acck.to(dev).contiguous().reshape(3, per // LANES, LANES), start)
+        outs.append(trace_lanes(frames[dev], config, config.spp, shard,
+                                *frames[dev].layout.lanes(k * per, (k + 1) * per)))
+    acc = gather_shards([o[2].reshape(3, per) for o in outs], mesh, dim=1)
     new_state = (torch.cat([o[0].to(dev0) for o in outs]),
                  torch.cat([o[1].to(dev0) for o in outs]),
                  torch.cat([o[2].to(dev0) for o in outs], dim=1),
                  start + config.spp)
-    return flat.T.reshape(h, w, 3), new_state
+    return layout.image(acc, config.width, config.height), new_state
 
 
 def _ray_shards(n: int, mesh: Mesh):

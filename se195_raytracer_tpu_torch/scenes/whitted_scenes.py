@@ -21,8 +21,9 @@ from se195_raytracer_tpu_torch.core.types import resolve_device
 PLANE = 0
 SPHERE = 1
 
-_TENSOR_FIELDS = ("normal", "depth", "center", "radius", "color", "refl", "diff", "refr",
-                  "refr_index", "spec")
+# The float32 tensor fields.
+FIELDS = ("normal", "depth", "center", "radius", "color", "refl", "diff", "refr", "refr_index",
+          "spec")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,7 +73,7 @@ class WhittedScene:
         if device == self.device:
             return self
         return dataclasses.replace(
-            self, **{f: getattr(self, f).to(device) for f in _TENSOR_FIELDS}
+            self, **{f: getattr(self, f).to(device) for f in FIELDS}
         )
 
 
@@ -103,7 +104,7 @@ class WhittedSceneBuilder:
         r = self.rows
         tensors = {
             f: torch.from_numpy(np.array([x[f] for x in r], np.float32)).to(device)
-            for f in _TENSOR_FIELDS
+            for f in FIELDS
         }
         return WhittedScene(
             **tensors,

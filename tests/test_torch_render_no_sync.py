@@ -131,21 +131,20 @@ def test_up_first_kept_under_inference_mode_still_takes_gradients():
 
 
 def test_k2_tables_take_the_kept_light_list(monkeypatch):
-    """Two freshly packed tables miss the lookup twice; both builds hand out
-    ``light_list``'s tensor and copy nothing from the host."""
+    """Two renders' packs of one scene (``scene_table``, for two ``Scene``
+    objects of the same tensors) share one build of K2's tables, which
+    hands out ``light_list``'s tensor and copies nothing from the host."""
     scene = get_scene("complex").to_scene("cpu")
     lights = ptk.light_list(scene.light_indices, scene.device)
-    tab_a, tab_b = ptk.pack_scene(scene), ptk.pack_scene(scene)
-    ptk._K2_TABLES.clear()
-    try:
-        monkeypatch.setattr(torch, "tensor", _refuse_host_tensor)
-        a = ptk._k2_tables(tab_a, scene.light_indices)
-        b = ptk._k2_tables(tab_b, scene.light_indices)
-        assert len(ptk._K2_TABLES) == 2 and a[0] is not b[0]
-        assert a[-1] is lights and b[-1] is lights
-        assert lights.dtype == torch.int32 and lights.tolist() == list(scene.light_indices)
-    finally:
-        ptk._K2_TABLES.clear()
+    ptk.pack_scene(scene)  # keeps its constants (``device_copy``)
+    monkeypatch.setattr(torch, "tensor", _refuse_host_tensor)
+    tab_a = ptk.scene_table(scene)
+    tab_b = ptk.scene_table(dataclasses.replace(scene))
+    a = ptk._k2_tables(tab_a, scene.light_indices)
+    b = ptk._k2_tables(tab_b, scene.light_indices)
+    assert tab_a is tab_b and all(x is y for x, y in zip(a, b))
+    assert a[-1] is lights
+    assert lights.dtype == torch.int32 and lights.tolist() == list(scene.light_indices)
 
 
 # --- on the card ------------------------------------------------------------

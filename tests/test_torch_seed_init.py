@@ -236,20 +236,19 @@ def test_seed_lanes_on_cuda_without_a_card_raises():
 
 
 def test_device_caches():
-    """``lane_tables`` and K1's light list are made once per key and equal
+    """``lane_layout`` and K1's light list are made once per key and equal
     what they replace; a new light tuple gets its own list."""
-    pix, inv = ptk.lane_tables(100, 70, True, 1, "cpu")
-    _, pix_np, inv_np = ptk.ray_layout(100, 70, True)
-    assert pix.dtype == torch.int32 and inv.dtype == torch.int64
-    np.testing.assert_array_equal(pix.numpy(), pix_np)
-    np.testing.assert_array_equal(inv.numpy(), inv_np)
-    assert ptk.lane_tables(100, 70, True, 1, "cpu")[0] is pix
-    assert ptk.lane_tables(100, 70, False, 1, "cpu") == (None, None)
-    s = torch.zeros(4, dtype=torch.uint32)
-    acc = torch.zeros(3, 1, 4)
-    a, _ = ptk._lights_and_outputs((3, 7), s, s, acc)
-    b, _ = ptk._lights_and_outputs((3, 7), s, s, acc)
-    c, _ = ptk._lights_and_outputs((8,), s, s, acc)
+    layout = ptk.lane_layout(100, 70, True, 1, "cpu")
+    rp, pix_np, inv_np = ptk.ray_layout(100, 70, True)
+    assert layout.blocked and layout.rp == rp
+    assert layout.pix.dtype == torch.int32 and layout.inv.dtype == torch.int64
+    np.testing.assert_array_equal(layout.pix.numpy(), pix_np)
+    np.testing.assert_array_equal(layout.inv.numpy(), inv_np)
+    assert ptk.lane_layout(100, 70, True, 1, "cpu").pix is layout.pix
+    assert ptk.lane_layout(100, 70, False, 1, "cpu")[2:] == (None, None)
+    a = ptk.light_list((3, 7), "cpu")
+    b = ptk.light_list((3, 7), "cpu")
+    c = ptk.light_list((8,), "cpu")
     assert a is b and a.tolist() == [3, 7] and a.dtype == torch.int32 and c.tolist() == [8]
 
 

@@ -92,21 +92,26 @@ def test_two_renders_give_two_roots_each_holding_its_layers():
 
 
 def test_k2_tables_build_once_a_table_and_again_after_a_write():
+    """K2's tables of one scene, looked up as a render looks them up
+    (through ``scene_table``): two lookups open two ``pt.k2_tables`` and one
+    ``pt.k2_tables.build``; after a write to the scene's centers the next
+    lookup builds again."""
     scene, _ = _cornell()
-    tab = ptk.pack_scene(scene)
-    ptk._K2_TABLES.clear()
+
+    def lookup():
+        return ptk._k2_tables(ptk.scene_table(scene), scene.light_indices)
+
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        first = ptk._k2_tables(tab, scene.light_indices)
-        again = ptk._k2_tables(tab, scene.light_indices)
+        first = lookup()
+        again = lookup()
     names = [s[0] for s in _spans(prof)]
     assert names.count("pt.k2_tables") == 2 and names.count("pt.k2_tables.build") == 1
     assert all(a is b for a, b in zip(first, again))
-    tab.mul_(1.0)
+    scene.center.mul_(1.0)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        ptk._k2_tables(tab, scene.light_indices)
+        lookup()
     names = [s[0] for s in _spans(prof)]
     assert names.count("pt.k2_tables") == 1 and names.count("pt.k2_tables.build") == 1
-    ptk._K2_TABLES.clear()
 
 
 def _adam(trainable):
@@ -198,3 +203,17 @@ def test_on_the_card_k1b_spans_lie_inside_the_steps_backward():
     for root in roots:
         for name in ("pt.k2_tables", "pt.launch", "pt.camera"):
             assert len(_inside(spans, root, name)) == 1, (name, spans)
+
+
+@pytest.mark.cuda
+def test_on_the_card_two_renders_of_one_scene_build_k2s_tables_once():
+    """Two ``render_cuda`` calls of ``complex`` on the card open two
+    ``pt.k2_tables`` and one ``pt.k2_tables.build``: the second render
+    finds the scene's table (``scene_table``) and, by it, K2's tables."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec = get_scene("complex")
+    big, cam = spec.to_scene("cuda"), spec.to_camera("cuda")
+    spans = _spans(_card_session(lambda: [ptk.render_cuda(big, cam, CFG) for _ in range(2)]))
+    names = [s[0] for s in spans]
+    assert names.count("pt.k2_tables") == 2 and names.count("pt.k2_tables.build") == 1

@@ -10,7 +10,6 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from se195_raytracer_tpu_torch.kernels import whitted5_kernel as wk
 from se195_raytracer_tpu_torch.models import whitted5 as P
 from se195_raytracer_tpu_torch.scenes.whitted5_scenes import room5_scene
 
@@ -94,8 +93,7 @@ def test_a_session_changes_no_image():
 def test_on_the_card_k4s_tables_lie_inside_the_launch_and_build_once():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    scene = room5_scene("procedural", device="cuda")
-    wk._PACKED.clear()
+    scene = room5_scene("procedural", device="cuda")  # fresh tensors: its first render builds
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for seed in (1, 2):
             P.render_whitted5(scene, 160, 120, spp=1, seed=seed, device="cuda")

@@ -136,7 +136,8 @@ def worker(root: str) -> dict:
         blocked = scene.num_spheres > ptk.UNROLL_MAX_SPHERES
         out[f"{name}_seed_ms"] = _ms(lambda: ptk.init_pt_state(cfg, "cuda", blocked))
         rp = ptk.ray_layout(WIDTH, HEIGHT, blocked)[0]
-        pix = ptk.lane_tables(WIDTH, HEIGHT, blocked, 1, "cuda")[0]
+        pix = (torch.from_numpy(ptk.ray_layout(WIDTH, HEIGHT, blocked)[1]).cuda() if blocked
+               else None)
 
         def seeding():
             seed_lanes("mwc", 0, WIDTH * HEIGHT, rp, pix=pix, device="cuda")
