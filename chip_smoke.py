@@ -422,6 +422,7 @@ def zero_counters():
                tk.texel_fetch_cuda, sk.seed_lanes, pbk.pt_backward_cuda):
         fn.launches = 0
     w5k.whitted5_trace_cuda.texel_launches = 0
+    pbk.pt_backward_cuda.lane_column_launches = 0
 
 
 def read_counters():
@@ -1394,6 +1395,8 @@ def k1b_entry(scene, camera, fwd, timing):
         "launches": fwd[f"spp{GRAD_SPPS[0]}"]["launches_in_backward"]["K1b"],
         "launches_per_differentiable_step": {
             k: v["launches_in_backward"]["K1b"] for k, v in fwd.items() if k.startswith("spp")},
+        "lane_column_launches_per_differentiable_step": {
+            k: v["k1b_lane_column_launches"] for k, v in fwd.items() if k.startswith("spp")},
         "max_abs_err": max(v["k1b_grad_max_abs_diff"] for k, v in fwd.items()
                            if k.startswith("spp")),
         "max_rel_err": max(v["k1b_grad_max_rel_diff"] for k, v in fwd.items()
@@ -1434,6 +1437,7 @@ def grad_section(card):
         make_inverse_step,
         render_differentiable,
     )
+    from se195_raytracer_tpu_torch.kernels import pt_backward_kernel as pbk
     from se195_raytracer_tpu_torch.models import whitted5 as P
     from se195_raytracer_tpu_torch.scenes.whitted5_scenes import room5_scene
 
@@ -1477,7 +1481,11 @@ def grad_section(card):
             ga = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
             torch.cuda.synchronize()
             bwd_launches, bwd_calls = read_counters(), calls["n"]
-            print(f"  spp {spp} backward: launches {bwd_launches}, plain radiance calls {bwd_calls}")
+            bwd_cols = pbk.pt_backward_cuda.lane_column_launches
+            print(f"  spp {spp} backward: launches {bwd_launches}, plain radiance calls {bwd_calls}"
+                  f"; K1b launches on the per-lane columns {bwd_cols}")
+            check(bwd_cols == bwd_launches["K1b"], f"spp {spp}: {SCENE}'s K1b launches must take "
+                  f"the per-lane columns, got {bwd_cols} of {bwd_launches['K1b']}")
             check(bwd_launches["Seed"] == bwd_launches["K1b"] == 1
                   and not any(v for k, v in bwd_launches.items() if k not in ("Seed", "K1b"))
                   and bwd_calls == 0,
@@ -1508,6 +1516,7 @@ def grad_section(card):
             fwd[f"spp{spp}"] = {
                 "k1_launches_per_forward": launches["K1"], "plain_radiance_in_forward": plain_calls,
                 "plain_radiance_in_backward": bwd_calls, "launches_in_backward": bwd_launches,
+                "k1b_lane_column_launches": bwd_cols,
                 "forward_max_abs_err": err, "forward_mismatch": mismatch,
                 "k1b_grad_max_rel_diff": rel, "k1b_grad_max_abs_diff": abs_err,
                 "k1b_primal_bitwise": primal_ok, "k1b_repeat_bitwise": k1b_repeat,

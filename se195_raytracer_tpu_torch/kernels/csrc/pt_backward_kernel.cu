@@ -56,26 +56,41 @@
 //   - rounding: only the primal is held to the plain path's rounding (Rn);
 //     the file is built without -fmad=false, so the adjoint contracts;
 //   - accumulation: the warp walks its lanes' bounces in lockstep, from its
-//     deepest record down (a lane past its own records adds zeros). At each
-//     step the lanes are grouped by sphere id, each group's 8 row slots are
-//     summed by a fixed reduce-scatter of 9 shuffles (warp_sum8), and one
-//     lane per slot adds its sum into the warp's table in shared memory
-//     with a plain add (warp_add): groups hold distinct ids and slots
-//     distinct entries, so no two writes meet, and a warp whose lanes all
-//     hit one sphere does one round. The light samples' rows have one id
-//     per light, so each is one round. No atomics: the gradient is the
-//     same bit for bit from run to run;
+//     deepest record down (a lane past its own records adds zeros). The hit
+//     sphere's row (centre, radius, colour: 7 values a bounce) goes one of
+//     two routes, chosen at launch from the scene's shape (lane_columns):
+//       * per-lane columns: each thread owns a column of 7 n floats in
+//         shared memory ([7 n][kThreads], the thread index fastest, so the
+//         lanes of a warp never meet on a bank whatever spheres they hit)
+//         and adds its row into it with plain adds: no ballot, no shuffle,
+//         no wait on the other lanes (lane_add). After the last pass the
+//         block folds the 128 columns in a fixed order (fold_columns). It
+//         is taken wherever a block with the columns still fits kMinBlocks
+//         to an SM: on sm_90, n <= 14 (the zoo's K1 scenes: 3 to 9 spheres);
+//       * warp rounds, for larger scenes: the lanes are grouped by sphere
+//         id, each group's 8 row slots summed by a fixed reduce-scatter of
+//         9 shuffles (warp_sum8), and one lane per slot adds its sum into
+//         the warp's table with a plain add (warp_add): groups hold
+//         distinct ids and slots distinct entries, so no two writes meet. A
+//         round costs its ballot and shuffle chain whatever its lanes, and
+//         Cornell's warps see ~6 distinct hit spheres a step.
+//     The light samples' rows (one id per light, so one round each) and the
+//     rare emission row keep warp_add on both routes. No atomics: the
+//     gradient is the same bit for bit from run to run;
 //   - occupancy: 128-thread blocks, at least 4 an SM (16 warps, at most 128
 //     registers), the record shrunk to the words the reverse sweep cannot
-//     recompute cheaply;
+//     recompute cheaply; the per-lane columns (32,256 B a block at n = 9)
+//     are what sizes a block's shared memory, and the route keeps the 4
+//     blocks an SM;
 //   - the scene sits in shared memory as in K1 (a float4 per sphere for the
 //     sweeps), the nearest hit and the shadow tests' outcomes are recorded
 //     rather than swept again.
-// The block sums its warps' tables in warp order into its row of a partials
-// table, and a second kernel sums the rows in a fixed order. Blocks are
-// aligned to absolute pixel ids (block b of a launch over rows lo..hi-1
-// holds pixels (lo & ~127) + 128 b ...), so a shard's blocks hold the same
-// lanes as the whole frame's.
+// The block sums its warps' tables in warp order (the folded columns added
+// into warp 0's first) into its row of a partials table, and a second
+// kernel sums the rows in a fixed order. Blocks are aligned to absolute
+// pixel ids (block b of a launch over rows lo..hi-1 holds pixels
+// (lo & ~127) + 128 b ...), so a shard's blocks hold the same lanes as the
+// whole frame's.
 //
 // Gradient layout (pt_backward_kernel.py pack_grad): center [n, 3], radius
 // [n], emission [n, 3], color [n, 3], then the basis orig, dir, x, y (12).
@@ -430,6 +445,29 @@ __device__ __forceinline__ void warp_add(int key, const float (&v)[8], float* ta
   }
 }
 
+// Adds a lane's hit row v (slots 0-6: centre, radius, colour) of sphere j
+// into its own column: slot c of sphere j at (c n + j) kThreads, from the
+// column's base (the thread's index).
+__device__ __forceinline__ void lane_add(float* col, int n, int j, const float (&v)[8]) {
+#pragma unroll
+  for (int c = 0; c < 7; ++c) col[(c * n + j) * kThreads] += v[c];
+}
+
+// Sums each of the 7 n entries over the block's kThreads columns in a fixed
+// order (a lane's four columns, then a butterfly over the warp) and adds it
+// into its entry of the table `tab` (centre at 3 j, radius at 3 n + j,
+// colour at 7 n + 3 j). Warp w takes entries w, w + kWarps, ...
+__device__ __forceinline__ void fold_columns(const float* cols, float* tab, int n) {
+  const int lane = threadIdx.x & 31;
+  for (int e = threadIdx.x >> 5; e < 7 * n; e += kWarps) {
+    const float* c = cols + e * kThreads;
+    float v = (c[lane] + c[lane + 32]) + (c[lane + 64] + c[lane + 96]);
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+    const int s = e / n, j = e - s * n;
+    if (lane == 0) tab[s < 3 ? 3 * j + s : (s == 3 ? 3 * n + j : 7 * n + 3 * j + s - 4)] += v;
+  }
+}
+
 // The replay of one pass: the camera ray's jitter (kcx, kcy), the records
 // of its bounces, its radiance.
 template <bool DIRECT_ONLY, int RNG>
@@ -532,11 +570,11 @@ __device__ __forceinline__ int replay(const Scene& S, const float* cs, float px,
 }
 
 // The reverse sweep of one pass with radiance cotangent G, the warp's lanes
-// in lockstep: the scene's gradients into the warp's table, the camera
-// basis's into gb. All 32 lanes call it together (a lane with no records,
-// nrec = 0, adds zeros).
-template <bool DIRECT_ONLY, int RNG>
-__device__ __forceinline__ void reverse(const Scene& S, float* tab, const float* cs,
+// in lockstep: the scene's gradients into the warp's table (with COLS the
+// hit rows into the lane's column col), the camera basis's into gb. All 32
+// lanes call it together (a lane with no records, nrec = 0, adds zeros).
+template <bool DIRECT_ONLY, int RNG, bool COLS>
+__device__ __forceinline__ void reverse(const Scene& S, float* tab, float* col, const float* cs,
                                         const Rec* recs, int nrec, float kcx, float kcy, V3 G,
                                         float* gb) {
   const V3 zero = v3(0.0f, 0.0f, 0.0f);
@@ -761,7 +799,11 @@ __device__ __forceinline__ void reverse(const Scene& S, float* tab, const float*
       ch[2] = g_ctr.z;
       ch[3] = 2.0f * r * g_det;
     }
-    warp_add(act ? hid : -1, ch, tab, n, 7 * n);
+    if (COLS) {
+      if (act) lane_add(col, n, hid, ch);
+    } else {
+      warp_add(act ? hid : -1, ch, tab, n, 7 * n);
+    }
     // The emission only where some lane saw a light by a specular path.
     if (__any_sync(kFull, has_e)) warp_add(has_e ? hid : -1, ce, tab, n, 4 * n);
   }
@@ -782,7 +824,7 @@ __device__ __forceinline__ void reverse(const Scene& S, float* tab, const float*
   gb[11] += g_rd.z * kcy;
 }
 
-template <bool DIRECT_ONLY, int RNG>
+template <bool DIRECT_ONLY, int RNG, bool COLS>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 pt_backward_kernel(const float* __restrict__ scene, int n, const int* __restrict__ lights,
                    int n_lights, const float* __restrict__ cam, const uint32_t* __restrict__ s0_in,
@@ -796,17 +838,21 @@ pt_backward_kernel(const float* __restrict__ scene, int n, const int* __restrict
   float* tab = reinterpret_cast<float*>(g4 + n);
   float* cs = tab + kRows * n;
   float* gtab = cs + 12;  // [kWarps, P]
-  int* ls = reinterpret_cast<int*>(gtab + kWarps * P);
+  float* cols = gtab + kWarps * P;  // with COLS: [7 n, kThreads]
+  int* ls = reinterpret_cast<int*>(cols + (COLS ? 7 * n * kThreads : 0));
   for (int i = threadIdx.x; i < n; i += blockDim.x)
     g4[i] = make_float4(scene[i], scene[n + i], scene[2 * n + i], scene[3 * n + i]);
   for (int i = threadIdx.x; i < kRows * n; i += blockDim.x) tab[i] = scene[i];
   if (threadIdx.x < 12) cs[threadIdx.x] = cam[threadIdx.x];
   for (int i = threadIdx.x; i < n_lights; i += blockDim.x) ls[i] = lights[i];
   for (int i = threadIdx.x; i < kWarps * P; i += blockDim.x) gtab[i] = 0.0f;
+  if (COLS)  // each thread its own column
+    for (int i = threadIdx.x; i < 7 * n * kThreads; i += kThreads) cols[i] = 0.0f;
   __syncthreads();
 
   const Scene S{g4, tab, ls, n, n_lights};
   float* wtab = gtab + (threadIdx.x >> 5) * P;
+  float* col = cols + threadIdx.x;
   float gb[12];
   for (int k = 0; k < 12; ++k) gb[k] = 0.0f;
   // Every lane of the block walks the passes (the reverse sweep's warp
@@ -836,7 +882,8 @@ pt_backward_kernel(const float* __restrict__ scene, int n, const int* __restrict
                Rn::mul(Rn::add(Rn::mul(acc.y, k), rad.y), rk),
                Rn::mul(Rn::add(Rn::mul(acc.z, k), rad.z), rk));
     }
-    reverse<DIRECT_ONLY, RNG>(S, wtab, cs, recs, nrec, kcx, kcy, go * weights[pass], gb);
+    reverse<DIRECT_ONLY, RNG, COLS>(S, wtab, col, cs, recs, nrec, kcx, kcy, go * weights[pass],
+                                    gb);
   }
   if (live && img_out != nullptr) {
     img_out[3 * lane] = acc.x;
@@ -852,6 +899,10 @@ pt_backward_kernel(const float* __restrict__ scene, int n, const int* __restrict
   __syncwarp();
   if ((threadIdx.x & 31) == 0)
     for (int k = 0; k < 12; ++k) wtab[10 * n + k] += gb[k];
+  if (COLS) {  // every column whole, then folded into warp 0's table
+    __syncthreads();
+    fold_columns(cols, gtab, n);
+  }
   __syncthreads();
   float* row = partials + (size_t)blockIdx.x * P;
   for (int i = threadIdx.x; i < P; i += blockDim.x) {
@@ -896,18 +947,46 @@ struct Args {
   float* img_out;
 };
 
-size_t smem_bytes(int n, int n_lights) {
-  return sizeof(float4) * n + sizeof(float) * (kRows * n + 12 + kWarps * (10 * n + 12)) +
-         sizeof(int) * n_lights;
+// A block's shared memory: the spheres' float4s, the scene's rows, the
+// camera, the warps' tables, with cols the per-lane columns, the lights.
+size_t smem_bytes(int n, int n_lights, bool cols) {
+  const size_t floats = kRows * n + 12 + kWarps * (10 * n + 12) + (cols ? 7 * n * kThreads : 0);
+  return sizeof(float4) * n + sizeof(float) * floats + sizeof(int) * n_lights;
 }
 
-template <bool DIRECT_ONLY, int RNG>
+// The route on the current device: the per-lane columns where a block that
+// holds them fits the opt-in limit a block and still kMinBlocks to an SM,
+// each block with the runtime's reservation. lim: the three limits read.
+cudaError_t lane_columns(int n, int n_lights, bool& cols, int (&lim)[3]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&lim[0], cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&lim[1], cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&lim[2], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  const size_t b = smem_bytes(n, n_lights, true);
+  cols = b <= static_cast<size_t>(lim[2]) &&
+         kMinBlocks * (b + lim[1]) <= static_cast<size_t>(lim[0]);
+  return cudaSuccess;
+}
+
+// Past the default 48 KB a block's shared memory needs the kernel's opt-in.
+cudaError_t allow_smem(const void* fn, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <bool DIRECT_ONLY, int RNG, bool COLS>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const int P = 10 * a.n + 12;
-  const size_t smem = smem_bytes(a.n, a.n_lights);
+  const size_t smem = smem_bytes(a.n, a.n_lights, COLS);
   const int lo_aligned = a.lo & ~(kThreads - 1);
   const int blocks = (a.hi - lo_aligned + kThreads - 1) / kThreads;
-  pt_backward_kernel<DIRECT_ONLY, RNG><<<blocks, kThreads, smem, stream>>>(
+  pt_backward_kernel<DIRECT_ONLY, RNG, COLS><<<blocks, kThreads, smem, stream>>>(
       a.scene, a.n, a.lights, a.n_lights, a.cam, a.s0, a.s1, a.grad_out, a.weights,
       a.num_samples, a.lo, a.hi, lo_aligned, a.width, a.height, a.inv_w, a.inv_h, a.max_depth,
       a.partials, a.img_out);
@@ -917,6 +996,27 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The builds, PT or DL by mwc or counter by route: index 4 DL + 2 counter +
+// cols.
+int build(int direct_only, int rng_counter, bool cols) {
+  return 4 * (direct_only != 0) + 2 * (rng_counter != 0) + (cols ? 1 : 0);
+}
+using Launch = cudaError_t (*)(const Args&, cudaStream_t);
+const Launch kLaunch[8] = {
+    launch<false, kMwc, false>,     launch<false, kMwc, true>,
+    launch<false, kCounter, false>, launch<false, kCounter, true>,
+    launch<true, kMwc, false>,      launch<true, kMwc, true>,
+    launch<true, kCounter, false>,  launch<true, kCounter, true>};
+const void* const kKernel[8] = {
+    reinterpret_cast<const void*>(pt_backward_kernel<false, kMwc, false>),
+    reinterpret_cast<const void*>(pt_backward_kernel<false, kMwc, true>),
+    reinterpret_cast<const void*>(pt_backward_kernel<false, kCounter, false>),
+    reinterpret_cast<const void*>(pt_backward_kernel<false, kCounter, true>),
+    reinterpret_cast<const void*>(pt_backward_kernel<true, kMwc, false>),
+    reinterpret_cast<const void*>(pt_backward_kernel<true, kMwc, true>),
+    reinterpret_cast<const void*>(pt_backward_kernel<true, kCounter, false>),
+    reinterpret_cast<const void*>(pt_backward_kernel<true, kCounter, true>)};
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes. scene: [12, n] float32
@@ -925,51 +1025,72 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // grad_out: [hi - lo, 3] float32; weights: [num_samples] float32;
 // partials: [blocks, 10 n + 12] float32 scratch, blocks =
 // pt_backward_blocks(lo, hi); out: [10 n + 12] float32; img_out: [hi - lo,
-// 3] float32 or null. max_depth <= 16, n <= 96. Returns cudaGetLastError()
-// after the launches (0 = cudaSuccess).
+// 3] float32 or null; lane_cols: null, or where the route taken is written
+// (1 the per-lane columns, 0 the warp rounds). max_depth <= 16, n <= 96.
+// Returns cudaGetLastError() after the launches (0 = cudaSuccess).
 extern "C" int pt_backward_cuda(const float* scene, int n, const int* lights, int n_lights,
                                 const float* cam, const uint32_t* s0, const uint32_t* s1,
                                 const float* grad_out, const float* weights, int num_samples,
                                 int lo, int hi, int width, int height, float inv_w, float inv_h,
                                 int max_depth, int direct_only, int rng_counter, float* partials,
-                                float* out, float* img_out, void* stream) {
+                                float* out, float* img_out, void* stream, int* lane_cols) {
   if (max_depth > kMaxDepth || n_lights > 32 * kMaxLightWords || n > (int)kHidMask + 1 ||
       hi <= lo)
     return static_cast<int>(cudaErrorInvalidValue);
+  bool cols = false;
+  int lim[3];
+  cudaError_t err = lane_columns(n, n_lights, cols, lim);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const Args a{scene, n, lights, n_lights, cam, s0, s1, grad_out, weights, num_samples, lo, hi,
                width, height, inv_w, inv_h, max_depth, partials, out, img_out};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (direct_only) {
-    err = rng_counter ? launch<true, kCounter>(a, st) : launch<true, kMwc>(a, st);
-  } else {
-    err = rng_counter ? launch<false, kCounter>(a, st) : launch<false, kMwc>(a, st);
-  }
+  const int k = build(direct_only, rng_counter, cols);
+  err = allow_smem(kKernel[k], smem_bytes(n, n_lights, cols));
+  if (err == cudaSuccess) err = kLaunch[k](a, static_cast<cudaStream_t>(stream));
+  if (lane_cols != nullptr) *lane_cols = cols ? 1 : 0;
   return static_cast<int>(err);
 }
 
+// K1b's route for a scene of n spheres and n_lights lights on the current
+// device: out[0] 1 for the per-lane columns, 0 for the warp rounds; out[1]
+// the shared memory a block of that route holds in bytes; out[2..4] the
+// limits the choice read (shared memory an SM, the runtime's reservation a
+// block, the opt-in limit a block). Returns the CUDA error code.
+extern "C" int pt_backward_route(int n, int n_lights, int* out) {
+  bool cols = false;
+  int lim[3];
+  const cudaError_t err = lane_columns(n, n_lights, cols, lim);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = cols ? 1 : 0;
+  out[1] = static_cast<int>(smem_bytes(n, n_lights, cols));
+  for (int k = 0; k < 3; ++k) out[2 + k] = lim[k];
+  return 0;
+}
+
 // K1b's build and occupancy (PT or DL, mwc or counter) for a scene of n
-// spheres and n_lights lights: out[0] its warps resident on one SM, as the
-// occupancy calculator gives them, out[1] its registers a thread, out[2] its
-// local memory a thread in bytes (the stack frame). Returns
-// cudaGetLastError()'s code (0 = cudaSuccess).
+// spheres and n_lights lights, on the route a launch takes: out[0] its warps
+// resident on one SM, as the occupancy calculator gives them, out[1] its
+// registers a thread, out[2] its local memory a thread in bytes (the stack
+// frame), out[3] the route (1 the per-lane columns), out[4] its shared
+// memory a block in bytes. Returns the CUDA error code (0 = cudaSuccess).
 extern "C" int pt_backward_occupancy(int n, int n_lights, int direct_only, int rng_counter,
                                      int* out) {
-  const void* fn = direct_only ? (rng_counter
-                                      ? (const void*)pt_backward_kernel<true, kCounter>
-                                      : (const void*)pt_backward_kernel<true, kMwc>)
-                               : (rng_counter
-                                      ? (const void*)pt_backward_kernel<false, kCounter>
-                                      : (const void*)pt_backward_kernel<false, kMwc>);
+  bool cols = false;
+  int lim[3];
+  cudaError_t err = lane_columns(n, n_lights, cols, lim);
+  const void* fn = kKernel[build(direct_only, rng_counter, cols)];
+  const size_t smem = smem_bytes(n, n_lights, cols);
+  if (err == cudaSuccess) err = allow_smem(fn, smem);
   int blocks = 0;
-  cudaError_t err =
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, smem_bytes(n, n_lights));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, smem);
   cudaFuncAttributes attr;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = blocks * kWarps;
   out[1] = attr.numRegs;
   out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = cols ? 1 : 0;
+  out[4] = static_cast<int>(smem);
   return 0;
 }
 

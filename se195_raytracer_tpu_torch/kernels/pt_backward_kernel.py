@@ -17,6 +17,16 @@ the spheres' center [N, 3], radius [N], emission [N, 3] and color [N, 3],
 then the camera basis orig, dir, x and y (``update_camera``'s output). The
 camera's own leaves get theirs through ``update_camera`` on the host
 (``driver.optimize._KernelForward``).
+
+The kernel sums each bounce's hit-sphere row (centre, radius, colour) by one
+of two routes, which its C entry point takes from the scene's shape
+(``k1b_lane_columns`` mirrors the choice, ``k1b_shared_memory_bytes`` the
+bytes): per-lane columns in shared memory, each thread adding into its own
+and the block folding them at its end, wherever a block with them still fits
+four to an SM (on sm_90 up to 14 spheres: every K1 scene of the zoo); else
+warp rounds, one shuffle reduction per distinct sphere id among a warp's
+lanes. ``pt_backward_cuda.lane_column_launches`` counts the launches that
+took the columns.
 """
 
 from __future__ import annotations
@@ -47,6 +57,17 @@ SCENE_FIELDS = ("center", "radius", "emission", "color")
 GRAD_ROW_REL = 3e-4
 GRAD_ROW_FLOOR = 1e-3
 BASIS_FIELDS = ("orig", "dir", "x", "y")
+# K1b's launch (csrc/pt_backward_kernel.cu): threads a block, warps a block,
+# blocks an SM it must keep, rows of the scene table.
+THREADS = 128
+WARPS = THREADS // 32
+MIN_BLOCKS = 4
+SCENE_ROWS = 12
+# sm_90's shared memory an SM, the runtime's reservation a block and the
+# opt-in limit a block, as cudaDeviceGetAttribute reads them on an H100.
+SMEM_PER_SM = 228 * 1024
+SMEM_RESERVED_PER_BLOCK = 1024
+SMEM_PER_BLOCK_OPTIN = 227 * 1024
 
 
 def grad_size(n: int) -> int:
@@ -110,6 +131,29 @@ def running_mean_weights_tensor(spp: int, device) -> torch.Tensor:
     return device_copy(running_mean_weights(spp), torch.float32, device)
 
 
+def k1b_shared_memory_bytes(n: int, n_lights: int, lane_columns: bool) -> int:
+    """Bytes of shared memory a K1b block holds for ``n`` spheres and
+    ``n_lights`` lights (``smem_bytes`` in csrc/pt_backward_kernel.cu counts
+    the same): a (center, radius) float4 per sphere, the scene's rows, the
+    camera row, each warp's gradient table, with ``lane_columns`` a column of
+    7 n floats per thread, and the light list."""
+    floats = (SCENE_ROWS * n + 12 + WARPS * grad_size(n)
+              + (7 * n * THREADS if lane_columns else 0))
+    return 16 * n + 4 * floats + 4 * n_lights
+
+
+def k1b_lane_columns(n: int, n_lights: int, smem_per_sm: int = SMEM_PER_SM,
+                     reserved: int = SMEM_RESERVED_PER_BLOCK,
+                     optin: int = SMEM_PER_BLOCK_OPTIN) -> bool:
+    """Whether K1b takes the per-lane columns for ``n`` spheres and
+    ``n_lights`` lights, as its C entry point decides from the device's
+    limits (sm_90's by default): a block that holds them within the opt-in
+    limit, and ``MIN_BLOCKS`` of them, each with the runtime's reservation,
+    within an SM's shared memory. Else the warp rounds."""
+    b = k1b_shared_memory_bytes(n, n_lights, True)
+    return b <= optin and MIN_BLOCKS * (b + reserved) <= smem_per_sm
+
+
 def pt_backward_reference(scene: Scene, basis: CameraBasis, config: RenderConfig,
                           grad_out: torch.Tensor, pixels: Optional[Tuple[int, int]] = None,
                           image: bool = False):
@@ -161,7 +205,8 @@ def pt_backward_cuda(scene: Scene, basis: CameraBasis, config: RenderConfig,
     forward's, for an unchanged scene). What ``k1b_takes`` refuses raises,
     as does a refused launch. ``image`` also returns the kernel's replayed
     primal, [hi - lo, 3], the plain path's image bit for bit. Counts its
-    calls in ``pt_backward_cuda.launches``."""
+    calls in ``pt_backward_cuda.launches``, and those that took the
+    per-lane columns in ``pt_backward_cuda.lane_column_launches``."""
     refuse_grad("pt_backward_cuda", scene, basis, grad_out)
     dev = scene.center.device
     n = scene.num_spheres
@@ -189,6 +234,7 @@ def pt_backward_cuda(scene: Scene, basis: CameraBasis, config: RenderConfig,
     img = torch.empty((lanes, 3), dtype=torch.float32, device=dev) if image else None
     s0, s1 = seed_lanes(config.rng, config.seed, config.width * config.height, lanes,
                         lane_offset=lo, device=dev)
+    cols = ctypes.c_int(0)
     err = lib.pt_backward_cuda(
         tab.data_ptr(), n, lights.data_ptr(), len(scene.light_indices), cam.data_ptr(),
         s0.data_ptr(), s1.data_ptr(), g.data_ptr(), weights.data_ptr(), config.spp, lo, hi,
@@ -196,29 +242,45 @@ def pt_backward_cuda(scene: Scene, basis: CameraBasis, config: RenderConfig,
         float(np.float32(1.0 / config.height)), config.max_depth,
         int(config.integrator == "dl"), int(config.rng == "counter"), partials.data_ptr(),
         out.data_ptr(), None if img is None else img.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(cols))
     if err != 0:
         raise RuntimeError(f"pt_backward_cuda launch failed: cudaError {err}")
     pt_backward_cuda.launches += 1
+    pt_backward_cuda.lane_column_launches += cols.value
     return (out, img) if image else out
 
 
 pt_backward_cuda.launches = 0
+pt_backward_cuda.lane_column_launches = 0
+
+
+def route(n: int, n_lights: int) -> Dict[str, int]:
+    """K1b's route on the current card for ``n`` spheres and ``n_lights``
+    lights, as its C entry point takes it: ``lane_columns`` (1 or 0), the
+    ``shared_bytes`` a block of that route holds, and the three limits the
+    choice read (``smem_per_sm``, ``reserved``, ``optin``). Needs a GPU."""
+    out = (ctypes.c_int * 5)()
+    err = _lib().pt_backward_route(n, n_lights, out)
+    if err != 0:
+        raise RuntimeError(f"pt_backward_route failed: CUDA error {err}")
+    return dict(zip(("lane_columns", "shared_bytes", "smem_per_sm", "reserved", "optin"), out))
 
 
 def occupancy(scene: Scene, config: RenderConfig) -> Dict[str, int]:
-    """K1b's build for ``config``'s integrator and RNG on the current card:
-    its warps resident on one SM for ``scene`` (the CUDA occupancy calculator,
-    from the build's registers and the launch's shared memory), its
-    registers and its local memory (the stack frame) a thread, as
-    ``cudaFuncGetAttributes`` reads them. Needs a GPU."""
-    out = (ctypes.c_int * 3)()
+    """K1b's build for ``config``'s integrator and RNG and ``scene``'s route
+    on the current card: its warps resident on one SM for ``scene`` (the CUDA
+    occupancy calculator, from the build's registers and the launch's shared
+    memory), its registers and its local memory (the stack frame) a thread,
+    as ``cudaFuncGetAttributes`` reads them, the route (``lane_columns``) and
+    the shared memory a block holds. Needs a GPU."""
+    out = (ctypes.c_int * 5)()
     err = _lib().pt_backward_occupancy(scene.num_spheres, len(scene.light_indices),
                                        int(config.integrator == "dl"),
                                        int(config.rng == "counter"), out)
     if err != 0:
         raise RuntimeError(f"pt_backward_occupancy failed: CUDA error {err}")
-    return {"resident_warps_per_sm": out[0], "registers": out[1], "local_bytes": out[2]}
+    return {"resident_warps_per_sm": out[0], "registers": out[1], "local_bytes": out[2],
+            "lane_columns": out[3], "shared_bytes": out[4]}
 
 
 def _lib() -> ctypes.CDLL:
@@ -228,10 +290,12 @@ def _lib() -> ctypes.CDLL:
     if lib.pt_backward_cuda.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.pt_backward_cuda.argtypes = [p, i, p, i, p, p, p, p, p, i, i, i, i, i, f, f, i, i,
-                                         i, p, p, p, p]
+                                         i, p, p, p, p, ctypes.POINTER(i)]
         lib.pt_backward_cuda.restype = ctypes.c_int
         lib.pt_backward_blocks.argtypes = [i, i]
         lib.pt_backward_blocks.restype = ctypes.c_int
         lib.pt_backward_occupancy.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
         lib.pt_backward_occupancy.restype = ctypes.c_int
+        lib.pt_backward_route.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.pt_backward_route.restype = ctypes.c_int
     return lib

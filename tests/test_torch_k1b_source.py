@@ -8,6 +8,8 @@ only on the card.
   this only on the card, when it runs).
 - ``tools/k1b_split.py`` matches the source to the design whose variant
   edits all apply.
+- The launch constants of the Python mirror of K1b's route are the
+  source's.
 - K1b is built without ``-fmad=false`` (its replay rounds with intrinsics
   that are never contracted; its reverse sweep may contract), the Whitted
   kernels keep it, and no source is built with ``--use_fast_math``.
@@ -50,9 +52,18 @@ def test_each_fault_line_occurs_once(fault):
 
 def test_split_knows_the_current_design():
     """``tools/k1b_split.py`` finds every variant's search strings in the
-    checkout's source (the lockstep design), each exactly once."""
+    checkout's source (the lockstep design with per-lane columns), each
+    exactly once."""
     split = _tool("k1b_split")
-    assert split.design_of(str(ROOT)) == "lockstep"
+    assert split.design_of(str(ROOT)) == "lane columns"
+
+
+@pytest.mark.parametrize("name,value", [("kThreads", K.THREADS), ("kMinBlocks", K.MIN_BLOCKS),
+                                        ("kRows", K.SCENE_ROWS)])
+def test_source_constants_are_the_route_mirrors(name, value):
+    """The launch constants that ``k1b_lane_columns`` and
+    ``k1b_shared_memory_bytes`` mirror are the source's."""
+    assert f"constexpr int {name} = {value};" in SOURCE.read_text()
 
 
 def test_k1b_builds_without_fmad_false():

@@ -6,7 +6,9 @@ autograd, the camera chain (the basis's gradient pushed through
 ``update_camera``'s autograd), the plain version ``pt_backward_reference``
 against ``jax.vjp`` of the JAX package's ``_render_jnp_diff`` and its shards
 against the whole frame, the CPU route of ``_KernelForward.backward`` (the
-plain recompute, no K1b), and ``pt_backward_cuda`` refusing CPU tensors.
+plain recompute, no K1b), ``pt_backward_cuda`` refusing CPU tensors, and
+K1b's route (per-lane columns or warp rounds) and shared memory from the
+scene's shape (``k1b_lane_columns``, ``k1b_shared_memory_bytes``).
 
 Tolerances and their reasons:
 - the running-mean weights: bitwise (the same float32 operations in the same
@@ -58,8 +60,45 @@ def _one_torch_thread():
 
 
 def _scene(name, device="cpu"):
+    if name == "spheres40":
+        return _spheres40(device)
     spec = get_scene(name)
     return spec.to_scene(device), spec.to_camera(device)
+
+
+def _spheres40(device):
+    """Cornell's 9 spheres, 30 small ones (radius 3.5, diffuse, mirror and
+    glass in turn) on a grid in the room, clear of each other and of the
+    room's own, and a second light: 40 spheres, 2 lights, so K1b takes its
+    warp rounds (``k1b_lane_columns`` is false past 14 spheres)."""
+    from se195_raytracer_tpu_torch.core.types import Camera, Scene
+
+    spec = get_scene("cornell")
+    center, radius = [tuple(c) for c in spec.center], list(spec.radius)
+    emission, color, refl = [tuple(e) for e in spec.emission], [tuple(c) for c in spec.color], \
+        list(spec.refl)
+    room = list(zip(center[6:], radius[6:]))
+    for x in range(12, 96, 12):
+        for z in range(30, 140, 18):
+            for y in (6.0, 34.0):
+                if len(center) == 39:
+                    break
+                if all(np.hypot(np.hypot(x - c[0], y - c[1]), z - c[2]) > r + 5.0 for c, r in room):
+                    k = len(center)
+                    center.append((float(x), y, float(z)))
+                    radius.append(3.5)
+                    emission.append((0.0, 0.0, 0.0))
+                    color.append((0.2 + 0.07 * (k % 9), 0.5, 0.8 - 0.06 * (k % 7)))
+                    refl.append(k % 3)
+                    room.append((center[-1], 3.5))
+    center.append((20.0, 70.0, 110.0))
+    radius.append(3.0)
+    emission.append((6.0, 6.0, 6.0))
+    color.append((0.0, 0.0, 0.0))
+    refl.append(0)
+    assert len(center) == 40
+    return (Scene.from_arrays(center, radius, emission, color, refl, device=device),
+            Camera.look_at(spec.camera_orig, spec.camera_target, device=device))
 
 
 def _cotangent(shape, seed=0, device="cpu"):
@@ -303,22 +342,69 @@ def test_pt_backward_cuda_refuses_cpu_tensors():
     assert sk.seed_lanes.launches == 0 and K.pt_backward_cuda.launches == 0
 
 
+# ------------------------------------------------------- K1b's route ----
+@pytest.mark.parametrize("n,lane_columns", [(1, True), (9, True), (15, False), (96, False)])
+def test_route_from_the_scene_shape(n, lane_columns):
+    """K1b takes the per-lane columns for 1 and 9 spheres and the warp
+    rounds from 15, the first sphere count at which four blocks that hold
+    the columns no longer fit an SM's 228 KB on sm_90, up to 96; for any
+    light count."""
+    for n_lights in (1, n):
+        assert K.k1b_lane_columns(n, n_lights) is lane_columns, (n, n_lights)
+    assert K.k1b_lane_columns(14, 14) and not K.k1b_lane_columns(15, 0)
+    if lane_columns:
+        b = K.k1b_shared_memory_bytes(n, n, True)
+        assert K.MIN_BLOCKS * (b + K.SMEM_RESERVED_PER_BLOCK) <= K.SMEM_PER_SM
+
+
+@pytest.mark.parametrize("lane_columns", [True, False])
+@pytest.mark.parametrize("n,n_lights", [(1, 1), (9, 1), (40, 2)])
+def test_shared_memory_bytes_are_the_sum_of_the_parts(n, n_lights, lane_columns):
+    """A block's bytes: a float4 per sphere, the 12 scene rows, the camera's
+    12 floats, a gradient table of 10 n + 12 floats per warp, with the
+    per-lane columns 7 n floats per thread, and an int per light; 32,256 B
+    of columns at Cornell's 9 spheres."""
+    cols = 4 * 7 * n * K.THREADS if lane_columns else 0
+    want = 16 * n + 4 * 12 * n + 4 * 12 + K.WARPS * 4 * K.grad_size(n) + cols + 4 * n_lights
+    assert K.k1b_shared_memory_bytes(n, n_lights, lane_columns) == want
+    if n == 9 and lane_columns:
+        assert cols == 32256
+        assert want - K.k1b_shared_memory_bytes(n, n_lights, False) == 32256
+
+
+def test_synthetic_scene_takes_the_warp_rounds():
+    """The card tests' 40-sphere scene: 2 lights, within K1's and K1b's 96
+    spheres, past the per-lane columns."""
+    scene, _ = _scene("spheres40")
+    assert scene.num_spheres == 40 and len(scene.light_indices) == 2
+    assert not ptk.uses_k2(scene.num_spheres)
+    assert not K.k1b_lane_columns(scene.num_spheres, len(scene.light_indices))
+
+
 # --------------------------------------------------------- on the card ----
 @pytest.mark.cuda
 @pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA device")
 @pytest.mark.parametrize("integrator,rng,spp", [("pt", "mwc", 2), ("pt", "mwc", 5),
                                                 ("dl", "mwc", 2), ("pt", "counter", 2),
                                                 ("dl", "counter", 1)])
-def test_card_k1b_against_plain(integrator, rng, spp):
+@pytest.mark.parametrize("scene_name", ["cornell", "spheres40"])
+def test_card_k1b_against_plain(scene_name, integrator, rng, spp):
     """K1b's replayed primal is the plain path's bit for bit, and its
     gradient's every row within ``GRAD_ROW_REL`` of the plain VJP's
-    (``grad_row_error``), finite, on Cornell 64 x 48; a shard's gradients
-    sum to the frame's."""
-    scene, camera = _scene("cornell", "cuda")
+    (``grad_row_error``), finite, at 64 x 48 on both routes: Cornell takes
+    the per-lane columns, the 40-sphere scene the warp rounds. A second
+    launch is bitwise the first; a shard's gradients sum to the frame's."""
+    scene, camera = _scene(scene_name, "cuda")
     cfg = RenderConfig(width=64, height=48, spp=spp, seed=1, integrator=integrator, rng=rng)
     g = _cotangent((48, 64, 3), seed=4, device="cuda")
     basis = _basis(camera, cfg)
+    cols = K.k1b_lane_columns(scene.num_spheres, len(scene.light_indices))
+    assert cols is (scene_name == "cornell")
+    before = (K.pt_backward_cuda.launches, K.pt_backward_cuda.lane_column_launches)
     flat, img = K.pt_backward_cuda(scene, basis, cfg, g, image=True)
+    assert (K.pt_backward_cuda.launches - before[0],
+            K.pt_backward_cuda.lane_column_launches - before[1]) == (1, int(cols))
+    assert torch.equal(K.pt_backward_cuda(scene, basis, cfg, g), flat)
     ref, rimg = K.pt_backward_reference(scene, basis, cfg, g, image=True)
     with torch.no_grad():
         prim = O._render_plain_basis(scene, basis, cfg).reshape(-1, 3)
@@ -337,9 +423,9 @@ def test_card_k1b_against_plain(integrator, rng, spp):
 @pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA device")
 def test_card_backward_is_one_seeding_and_one_k1b_launch():
     """A hard differentiable step on the card: the forward is one seeding and
-    one K1 launch, the backward one seeding and one K1b launch and no plain
-    ``radiance``; on ``complex`` (K2) the backward keeps the plain
-    recompute."""
+    one K1 launch, the backward one seeding and one K1b launch, on the
+    per-lane columns, and no plain ``radiance``; on ``complex`` (K2) the
+    backward keeps the plain recompute."""
     from se195_raytracer_tpu_torch.driver import render as dr
 
     calls = {"n": 0}
@@ -355,6 +441,7 @@ def test_card_backward_is_one_seeding_and_one_k1b_launch():
         cfg = RenderConfig(width=32, height=32, spp=2, seed=1)
         img = O.render_differentiable(sc, cam, cfg)
         ptk.pt_multi_pass.launches = sk.seed_lanes.launches = K.pt_backward_cuda.launches = 0
+        K.pt_backward_cuda.lane_column_launches = 0
         dr.radiance = counted
         calls["n"] = 0
         try:
@@ -362,6 +449,7 @@ def test_card_backward_is_one_seeding_and_one_k1b_launch():
         finally:
             dr.radiance = real
         assert K.pt_backward_cuda.launches == k1b and sk.seed_lanes.launches == 1
+        assert K.pt_backward_cuda.lane_column_launches == k1b  # Cornell: the per-lane columns
         assert ptk.pt_multi_pass.launches == 0
         assert calls["n"] == (0 if k1b else cfg.spp), (name, calls["n"])
 
@@ -388,3 +476,26 @@ def test_card_deep_paths_keep_the_plain_backward():
     for k, a, b in zip(O.LEAVES, ga, gb):
         assert torch.isfinite(a).all(), k
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA device")
+@pytest.mark.parametrize("n,n_lights", [(1, 1), (9, 1), (14, 14), (15, 1), (40, 2), (96, 96)])
+def test_card_route_is_the_python_mirror(n, n_lights):
+    """The route and bytes K1b's C entry point takes on this card are
+    ``k1b_lane_columns``'s and ``k1b_shared_memory_bytes``'s for the limits
+    it read, and the build's occupancy reads the same route; on an H100
+    those limits are the mirror's sm_90 defaults."""
+    r = K.route(n, n_lights)
+    cols = K.k1b_lane_columns(n, n_lights, r["smem_per_sm"], r["reserved"], r["optin"])
+    assert r["lane_columns"] == int(cols)
+    assert r["shared_bytes"] == K.k1b_shared_memory_bytes(n, n_lights, cols)
+    scene, _ = _scene("spheres40" if n == 40 else "cornell", "cuda")
+    if scene.num_spheres == n:
+        occ = K.occupancy(scene, RenderConfig(width=8, height=8))
+        assert (occ["lane_columns"], occ["shared_bytes"]) == (r["lane_columns"],
+                                                              r["shared_bytes"])
+        assert occ["resident_warps_per_sm"] >= K.WARPS * K.MIN_BLOCKS
+    if "H100" in torch.cuda.get_device_name():
+        assert (r["smem_per_sm"], r["reserved"], r["optin"]) == (
+            K.SMEM_PER_SM, K.SMEM_RESERVED_PER_BLOCK, K.SMEM_PER_BLOCK_OPTIN)

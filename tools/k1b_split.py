@@ -23,20 +23,24 @@ loss's cotangent 2 (img - target) / numel with the target rendered from
   folded into a value that a never-true test consumes, so the compiler keeps
   the replay and its records;
 - ``no table adds``: the reverse sweep runs, but each add of a gradient into
-  the warp's table is a never-true test of the value (a register sink);
+  the warp's table (and, in the lane-columns design, into a lane's column)
+  is a never-true test of the value (a register sink);
 - ``FMA allowed``: the replay's products and sums free to contract into
   FMAs (its result is timed, not checked);
-- the per-lane design only, ``reconverged each pass``: a ``__syncwarp()``
+- the atomics design only, ``reconverged each pass``: a ``__syncwarp()``
   after each pass's reverse sweep (every lane of Cornell 512x512 is live),
   so that no lane starts its next replay while another is still sweeping;
-- the lockstep design only, ``5 blocks an SM`` and ``6 blocks an SM``: the
+- the lockstep designs only, ``5 blocks an SM`` and ``6 blocks an SM``: the
   launch bounds' minimum raised from 4, so ptxas caps the registers at 102
   and 85.
 
-Two K1b designs are known (``EDITS``): the per-lane adjoint with
-shared-memory atomics into per-warp tables, and the lockstep sweep with
-warp reductions; a tree's source is matched to the one whose search strings
-each occur exactly once. Each child also reads the card's SM clock during a
+Three K1b designs are known (``EDITS``): the per-lane adjoint with
+shared-memory atomics into per-warp tables (``atomics``), the lockstep
+sweep with a warp reduction round per sphere id for every row
+(``lockstep``), and the lockstep sweep whose hit-sphere rows go into
+per-lane columns in shared memory, folded once a block (``lane columns``);
+a tree's source is matched to the one whose search strings each occur
+exactly once. Each child also reads the card's SM clock during a
 sustained run of the full kernel at each spp (``nvidia-smi`` from a thread
 while the launches run). Prints one JSON line per tree and variant and a
 table; ``--out`` writes the JSON too.
@@ -99,22 +103,35 @@ EDITS = {
                                    "reverse<DIRECT_ONLY, RNG>(S, gt, cs, recs, nrec, kcx, kcy, "
                                    "go * weights[pass], gb);\n      __syncwarp();")],
     },
-    "lockstep": {
-        "replay only": [(CU, "reverse<DIRECT_ONLY, RNG>(S, wtab, cs, recs, nrec, kcx, kcy, "
-                             "go * weights[pass], gb);", _CONSUME)],
-        "no table adds": [(CU, "  unsigned todo = __ballot_sync(kFull, key >= 0);\n",
-                           "  bool never = false;\n  for (int c = 0; c < 8; ++c) never |= "
-                           f"__float_as_uint(v[c]) == {_NEVER};\n"
-                           "  if (never) put_slot(tab, n, key, at, 0, v[0]);\n"
-                           "  unsigned todo = 0u;\n")],
-        "FMA allowed": [
-            (CU, "return __fmul_rn(a, b); }", "return a * b; }"),
-            (CU, "return __fadd_rn(a, b); }", "return a + b; }"),
-            (CU, "return __fsub_rn(a, b); }", "return a - b; }"),
-        ],
-        "5 blocks an SM": [(CU, "constexpr int kMinBlocks = 4;", "constexpr int kMinBlocks = 5;")],
-        "6 blocks an SM": [(CU, "constexpr int kMinBlocks = 4;", "constexpr int kMinBlocks = 6;")],
-    },
+}
+# The lockstep sweep's warp rounds with every add sunk.
+_SINK_ROUNDS = (CU, "  unsigned todo = __ballot_sync(kFull, key >= 0);\n",
+                "  bool never = false;\n  for (int c = 0; c < 8; ++c) never |= "
+                f"__float_as_uint(v[c]) == {_NEVER};\n"
+                "  if (never) put_slot(tab, n, key, at, 0, v[0]);\n"
+                "  unsigned todo = 0u;\n")
+EDITS["lockstep"] = {
+    "replay only": [(CU, "reverse<DIRECT_ONLY, RNG>(S, wtab, cs, recs, nrec, kcx, kcy, "
+                         "go * weights[pass], gb);", _CONSUME)],
+    "no table adds": [_SINK_ROUNDS],
+    "FMA allowed": [
+        (CU, "return __fmul_rn(a, b); }", "return a * b; }"),
+        (CU, "return __fadd_rn(a, b); }", "return a + b; }"),
+        (CU, "return __fsub_rn(a, b); }", "return a - b; }"),
+    ],
+    "5 blocks an SM": [(CU, "constexpr int kMinBlocks = 4;", "constexpr int kMinBlocks = 5;")],
+    "6 blocks an SM": [(CU, "constexpr int kMinBlocks = 4;", "constexpr int kMinBlocks = 6;")],
+}
+EDITS["lane columns"] = {
+    **EDITS["lockstep"],
+    "replay only": [(CU, "reverse<DIRECT_ONLY, RNG, COLS>(S, wtab, col, cs, recs, nrec, kcx, kcy, "
+                         "go * weights[pass],\n                                    gb);", _CONSUME)],
+    "no table adds": [
+        (CU, "  for (int c = 0; c < 7; ++c) col[(c * n + j) * kThreads] += v[c];\n",
+         f"  for (int c = 0; c < 7; ++c)\n    if (__float_as_uint(v[c]) == {_NEVER}) "
+         "col[(c * n + j) * kThreads] += v[c];\n"),
+        _SINK_ROUNDS,
+    ],
 }
 VARIANTS = ("full", "replay only", "no table adds", "FMA allowed", "reconverged each pass",
             "5 blocks an SM", "6 blocks an SM")
