@@ -46,6 +46,7 @@ from se195_raytracer_tpu_torch.models.whitted import (
     window_steps,
 )
 from se195_raytracer_tpu_torch.scenes.whitted_scenes import FIELDS, WhittedScene
+from se195_raytracer_tpu_torch.utils.profiling import span
 
 LANES = 128
 # Rays of the explicit entry are padded to whole 8 x 128 tiles, as the JAX
@@ -118,17 +119,26 @@ def _packed(scene: WhittedScene):
     nl, no) on the scene's device, made once per scene and kept
     (``derived``: its tensors by identity and version, its static
     structure): the copies to the device would otherwise stall each
-    launch."""
+    launch. In span ``wh.tables``, with ``wh.tables.build`` inside it on a
+    build; ``.lookups`` and ``.builds`` count both."""
 
     def build():
-        light = torch.tensor(scene.is_light, dtype=torch.int32, device=scene.device)
-        cam = torch.from_numpy(whitted_camera_row()).to(scene.device)
-        lists, nl, no = tap_lists(scene.ptype, scene.is_light)
-        lists = torch.tensor(lists or [0], dtype=torch.int32, device=scene.device)
-        return pack_whitted_scene(scene), light, cam, lists, nl, no
+        with span("wh.tables.build"):
+            _packed.builds += 1
+            light = torch.tensor(scene.is_light, dtype=torch.int32, device=scene.device)
+            cam = torch.from_numpy(whitted_camera_row()).to(scene.device)
+            lists, nl, no = tap_lists(scene.ptype, scene.is_light)
+            lists = torch.tensor(lists or [0], dtype=torch.int32, device=scene.device)
+            return pack_whitted_scene(scene), light, cam, lists, nl, no
 
-    return derived("k3.tables", tuple(getattr(scene, f) for f in FIELDS),
-                   (scene.ptype, scene.is_light), build)
+    with span("wh.tables"):
+        _packed.lookups += 1
+        return derived("k3.tables", tuple(getattr(scene, f) for f in FIELDS),
+                       (scene.ptype, scene.is_light), build)
+
+
+_packed.lookups = 0
+_packed.builds = 0
 
 
 _TAP_WORK: Dict[Tuple[int, int], torch.Tensor] = {}
@@ -251,26 +261,29 @@ def whitted_frame_cuda(
     the ray index and ``cam_row`` ([12], ``whitted_camera_row``; None = the
     reference's fixed camera), the subsamples reduced and tone-scaled there.
     Returns [H, W, 3] float32 in 0..255. CPU tensors take
-    ``render_whitted_scene``."""
+    ``render_whitted_scene``. The launch (the plain render on the CPU) is
+    span ``wh.launch``."""
     refuse_grad("whitted_frame_cuda", scene, cam_row)
     dev = scene.device
     if cam_row is None:
         cam_row = _packed(scene)[2]
     cam_row = cam_row.to(device=dev, dtype=torch.float32).reshape(12).contiguous()
     if dev.type == "cpu":
-        return render_whitted_scene(scene, width, height, supersample, trace_depth, hit_bias,
-                                    cam_row=cam_row)
+        with span("wh.launch"):
+            return render_whitted_scene(scene, width, height, supersample, trace_depth,
+                                        hit_bias, cam_row=cam_row)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     ss2 = supersample * supersample
     args = _scene_args(scene, trace_depth, hit_bias, 3 * pixels_per_block(supersample) * ss2)
     frame = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     lib = _kernel_lib()
-    err = lib.whitted_frame_cuda(
-        *args, cam_row.data_ptr(), width, height, supersample,
-        *window_steps(width, height), float(np.float32(256.0 / ss2)),
-        frame.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with span("wh.launch"):
+        err = lib.whitted_frame_cuda(
+            *args, cam_row.data_ptr(), width, height, supersample,
+            *window_steps(width, height), float(np.float32(256.0 / ss2)),
+            frame.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"whitted_frame_cuda launch failed: cudaError {err}")
     whitted_frame_cuda.launches += 1

@@ -30,6 +30,7 @@ import torch
 
 from se195_raytracer_tpu_torch.core.types import dot3, resolve_device, sqrt_rn
 from se195_raytracer_tpu_torch.scenes.whitted_scenes import PLANE, SPHERE, WhittedScene
+from se195_raytracer_tpu_torch.utils.profiling import span
 
 # raytracer_kernel.cl:26-30
 HIT = 1
@@ -482,19 +483,46 @@ def render_whitted_scene(
     return reduce_subsamples(acc, width, height, supersample)
 
 
-def render_whitted(scene: WhittedScene, config, device=None) -> torch.Tensor:
+def camera_to_device(camera, device) -> Optional[torch.Tensor]:
+    """``render_whitted``'s ``camera`` as a [12] float32 row on ``device``:
+    None stays None (the reference's fixed viewpoint); a pose ``(eye,
+    target)``, three floats each, is ``whitted_camera_row(eye, target)``;
+    anything else is taken as a [12] row. The row is copied from the host as
+    it is."""
+    if camera is None:
+        return None
+    if not isinstance(camera, torch.Tensor) and len(camera) == 2:
+        camera = torch.from_numpy(whitted_camera_row(*camera))
+    row = torch.as_tensor(camera, dtype=torch.float32)
+    if row.numel() != 12:
+        raise ValueError(f"camera: need (eye, target) or a [12] row, got {tuple(row.shape)}")
+    return row.reshape(12).to(device)
+
+
+def render_whitted(scene: WhittedScene, config, device=None, *, camera=None) -> torch.Tensor:
     """Render a WhittedScene with a RenderConfig (width, height,
     supersample, trace_depth, hit_bias, ray_tile, use_kernel) -> [H, W, 3]
     float32 in 0..255. With ``config.use_kernel`` the frame runs in K3
     (kernels/whitted_kernel.render_whitted_cuda, its plain version on the
     CPU); otherwise in ``render_whitted_scene``. ``device=None`` means
-    CUDA and raises when no GPU is present."""
-    device = resolve_device(device)
-    scene = scene.to(device)
-    kw = dict(width=config.width, height=config.height, supersample=config.supersample,
-              trace_depth=config.trace_depth, hit_bias=config.hit_bias)
-    if config.use_kernel:
-        from se195_raytracer_tpu_torch.kernels.whitted_kernel import render_whitted_cuda
+    CUDA and raises when no GPU is present. ``camera``: None for the
+    reference's fixed viewpoint, a pose ``(eye, target)`` or a [12] row
+    (``camera_to_device``).
 
-        return render_whitted_cuda(scene, device=device, **kw)
-    return render_whitted_scene(scene, ray_tile=config.ray_tile, **kw)
+    Under a profiler session the call is a ``wh.render`` span holding
+    ``wh.camera`` (the row made and put on the device) and ``wh.launch``
+    (K3's launch, or the plain render), K3's ``wh.tables`` lookup beside it
+    on a CUDA device."""
+    with span("wh.render"):
+        device = resolve_device(device)
+        scene = scene.to(device)
+        with span("wh.camera"):
+            cam_row = camera_to_device(camera, device)
+        kw = dict(width=config.width, height=config.height, supersample=config.supersample,
+                  trace_depth=config.trace_depth, hit_bias=config.hit_bias, cam_row=cam_row)
+        if config.use_kernel:
+            from se195_raytracer_tpu_torch.kernels.whitted_kernel import render_whitted_cuda
+
+            return render_whitted_cuda(scene, device=device, **kw)
+        with span("wh.launch"):
+            return render_whitted_scene(scene, ray_tile=config.ray_tile, **kw)

@@ -11,13 +11,14 @@ disabled form the CLI uses.
 ``span`` is the program's one span primitive: a named range on the
 profiler's own clock, the device trace's, recorded only while a profiler
 session is open, into that session. The port opens one at each layer of a
-render (``pt.*``, a whitted5 render's ``w5.*``) and of an inverse step
-(``opt.*``, ``k1b.*``); a ``torch.profiler`` session around any caller
-(``trace``, the benchmark's traced window) holds them beside the CUDA
-runtime's calls and the device's kernels. A unit's spans are grouped by
-time: a render's or a step's root (``pt.render``, ``w5.render``,
-``opt.step``) holds its children's intervals, those that autograd's
-thread opens during the step's backward too.
+render (``pt.*``, a Whitted render's ``wh.*``, a whitted5 render's
+``w5.*``) and of an inverse step (``opt.*``, ``k1b.*``); a
+``torch.profiler`` session around any caller (``trace``, the benchmark's
+traced window) holds them beside the CUDA runtime's calls and the device's
+kernels. A unit's spans are grouped by time: a render's or a step's root
+(``pt.render``, ``wh.render``, ``w5.render``, ``opt.step``) holds its
+children's intervals, those that autograd's thread opens during the step's
+backward too.
 """
 
 from __future__ import annotations
