@@ -33,7 +33,10 @@ explicit: sources from before K5's texel units (the parent commit
 table where the current K4 and K5 entries take the texel units and their
 [T, 4] table. ``--old-args flat`` (the default, for the parent) hands them
 those (``FlatAtlasLib``); ``--old-args units`` runs a copy of the current
-sources as it is.
+sources as it is. K3's frame entry in sources whose kernel reads the camera
+row through a device pointer (no ``CamRow`` in the source) gets the row
+copied to the card first (``DeviceCamLib``), where the current entry takes
+it from host memory.
 
 ``--old`` defaults to ``_archive/parent`` (git-ignored), which the lines
 above fill with the parent commit's sources; without it only the current
@@ -157,6 +160,34 @@ class FlatAtlasLib:
     def texel_fetch_cuda(self, *args):
         return self.lib.texel_fetch_cuda(self.atlas.data_ptr(), self.textab.data_ptr(),
                                          *args[2:])
+
+
+class DeviceCamLib:
+    """K3's entry points of sources whose frame kernel takes the camera row
+    as a device pointer: argument 5 of ``whitted_frame_cuda``, which the
+    current wrapper passes as the address of 12 host floats, is copied to
+    the card for them (a synchronous copy). Every other entry is the old
+    library's own."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def whitted_frame_cuda(self, *args):
+        import torch
+
+        args = list(args)
+        cam = torch.tensor(list((ctypes.c_float * 12).from_address(args[5])), device="cuda")
+        args[5] = cam.data_ptr()
+        return self.lib.whitted_frame_cuda(*args)
+
+
+def k3_lib(lib, old_dir: Path):
+    """The old whitted_kernel library as the current wrappers call it."""
+    source = (old_dir / "whitted_kernel.cu").read_text()
+    return lib if "CamRow" in source else DeviceCamLib(lib)
 
 
 def k45_lib(lib, textures, old_args):
@@ -407,6 +438,7 @@ def main() -> int:
     old = None
     if all((args.old / f"{name}.cu").exists() for name in SOURCES):
         old, logs = finish_build(start_build(args.old))
+        old["whitted_kernel"] = k3_lib(old["whitted_kernel"], args.old)
         cs.print_ptxas(logs, "old ")
         from se195_raytracer_tpu_torch.kernels._build import library_path
 

@@ -95,6 +95,13 @@ struct Scene {
   float bias;
 };
 
+// The camera row [O(3), X(3), Y(3), C(3)] (whitted_camera_row), passed to
+// the frame kernel by value: the launch takes its bytes from the host, so
+// no copy to the device precedes it.
+struct CamRow {
+  float v[12];
+};
+
 // Byte offsets of the dynamic shared memory: 5 float4 records per
 // primitive, then 1 / radius, kind and the occluder list, the two list
 // lengths, the camera row and the block's ray colors.
@@ -475,7 +482,8 @@ whitted_rays_kernel(const float* __restrict__ table,
 
 // Frame: one thread per subsample ray. Block b traces the ss^2 camera rays
 // of pixels b*ppb .. b*ppb + ppb - 1 (ray q of the block: pixel q / ss^2,
-// subsample q % ss^2 = tx * ss + ty), made from the cam row [O, X, Y, C]
+// subsample q % ss^2 = tx * ss + ty), made from the camera row [O, X, Y, C]
+// that the launch passes by value and each block puts in shared memory
 // (whitted_kernel.py:150-194, models/whitted.whitted_camera_rays_device);
 // a thread takes rays q, q + kThreads, ... when ppb * ss^2 > kThreads. The
 // colors meet in shared memory, [3][ppb * ss^2]; each pixel's subsamples
@@ -484,7 +492,7 @@ whitted_rays_kernel(const float* __restrict__ table,
 __global__ void __launch_bounds__(kThreads)
 whitted_frame_kernel(const float* __restrict__ table,
                      const int* __restrict__ light, int n, float bias,
-                     int trace_depth, const float* __restrict__ cam,
+                     int trace_depth, const __grid_constant__ CamRow cam,
                      int width, int height, int ss, int ppb, float dxs,
                      float dys, float hdx, float hdy, float scale,
                      float* __restrict__ frame) {
@@ -493,7 +501,7 @@ whitted_frame_kernel(const float* __restrict__ table,
   const int rays = ppb * ss2;
   const Layout L(n, 3 * rays);
   float* cs = reinterpret_cast<float*>(smem + L.cam);
-  if (threadIdx.x < 12) cs[threadIdx.x] = cam[threadIdx.x];
+  if (threadIdx.x < 12) cs[threadIdx.x] = cam.v[threadIdx.x];
   const Scene s = load_scene(table, light, n, bias, smem, L);
   float* color = reinterpret_cast<float*>(smem + L.color);
   const int npix = width * height;
@@ -689,6 +697,8 @@ extern "C" int whitted_trace_cuda(const float* table, const int* light, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// cam: the 12 floats of the camera row in host memory, copied into the
+// launch's parameters, so the caller may free them once this returns.
 extern "C" int whitted_frame_cuda(const float* table, const int* light, int n,
                                   float bias, int trace_depth,
                                   const float* cam, int width, int height,
@@ -701,9 +711,11 @@ extern "C" int whitted_frame_cuda(const float* table, const int* light, int n,
   const cudaError_t e = allow_smem(whitted_frame_kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = (width * height + ppb - 1) / ppb;
+  CamRow row;
+  for (int k = 0; k < 12; ++k) row.v[k] = cam[k];
   whitted_frame_kernel<<<blocks, kThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-      table, light, n, bias, trace_depth, cam, width, height, ss, ppb, dxs,
+      table, light, n, bias, trace_depth, row, width, height, ss, ppb, dxs,
       dys, hdx, hdy, scale, frame);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,8 +5,9 @@ whitted_kernel.py.
 Three entries, as in the JAX package:
 ``whitted_trace_cuda`` traces explicit ray tiles [6, Rp/128, 128] into
 acc [3, Rp/128, 128] (twin of ``whitted_trace_pallas_padded``),
-``whitted_frame_cuda`` makes the camera rays in the kernel and returns the
-finished [H, W, 3] frame in 0..255 (twin of ``whitted_frame_pallas``),
+``whitted_frame_cuda`` makes the camera rays in the kernel, from a camera
+row passed by value as a launch parameter, and returns the finished
+[H, W, 3] frame in 0..255 (twin of ``whitted_frame_pallas``),
 one thread per subsample ray, each block summing the subsamples of its
 ``pixels_per_block`` pixels in the order of ``reduce_subsamples``, and
 ``whitted_taps_cuda`` emits a debug tap of the primary rays in place of
@@ -115,8 +116,8 @@ def tap_lists(ptype, is_light) -> Tuple[list, int, int]:
 
 
 def _packed(scene: WhittedScene):
-    """(table, light flags, default camera row, the taps' lists as a tensor,
-    nl, no) on the scene's device, made once per scene and kept
+    """(table, light flags, the taps' lists as a tensor, nl, no) on the
+    scene's device, made once per scene and kept
     (``derived``: its tensors by identity and version, its static
     structure): the copies to the device would otherwise stall each
     launch. In span ``wh.tables``, with ``wh.tables.build`` inside it on a
@@ -126,10 +127,9 @@ def _packed(scene: WhittedScene):
         with span("wh.tables.build"):
             _packed.builds += 1
             light = torch.tensor(scene.is_light, dtype=torch.int32, device=scene.device)
-            cam = torch.from_numpy(whitted_camera_row()).to(scene.device)
             lists, nl, no = tap_lists(scene.ptype, scene.is_light)
             lists = torch.tensor(lists or [0], dtype=torch.int32, device=scene.device)
-            return pack_whitted_scene(scene), light, cam, lists, nl, no
+            return pack_whitted_scene(scene), light, lists, nl, no
 
     with span("wh.tables"):
         _packed.lookups += 1
@@ -139,6 +139,19 @@ def _packed(scene: WhittedScene):
 
 _packed.lookups = 0
 _packed.builds = 0
+
+# The reference's fixed viewpoint, K3's row when a frame gets none.
+_FIXED_ROW = torch.from_numpy(whitted_camera_row())
+
+
+def host_camera_row(cam_row) -> torch.Tensor:
+    """The row K3's frame entry takes: ``cam_row`` ([12], a tensor, numpy
+    array or sequence; None = the reference's fixed viewpoint) as a
+    contiguous float32 CPU tensor. A CUDA tensor is read back, which syncs
+    with its stream."""
+    if cam_row is None:
+        return _FIXED_ROW
+    return torch.as_tensor(cam_row, dtype=torch.float32).reshape(12).cpu().contiguous()
 
 
 _TAP_WORK: Dict[Tuple[int, int], torch.Tensor] = {}
@@ -231,7 +244,7 @@ def whitted_taps_cuda(
         return out.T.reshape(3, rays.shape[1], LANES)
     rays = rays.contiguous()
     args = _scene_args(scene, 0, hit_bias, 0)[:4]
-    lists, nl, no = _packed(scene)[3:]
+    lists, nl, no = _packed(scene)[2:]
     out = torch.empty((3, rays.shape[1], LANES), dtype=torch.float32, device=rays.device)
     lib = _kernel_lib()
     stream = torch.cuda.current_stream(rays.device).cuda_stream
@@ -262,12 +275,15 @@ def whitted_frame_cuda(
     reference's fixed camera), the subsamples reduced and tone-scaled there.
     Returns [H, W, 3] float32 in 0..255. CPU tensors take
     ``render_whitted_scene``. The launch (the plain render on the CPU) is
-    span ``wh.launch``."""
+    span ``wh.launch``.
+
+    The row is taken on the host (``host_camera_row``) and passed to K3 by
+    value as a launch parameter, so nothing is copied to the device before
+    the launch and the call does not wait for the stream; a CUDA tensor
+    given as ``cam_row`` is read back first, which does."""
     refuse_grad("whitted_frame_cuda", scene, cam_row)
     dev = scene.device
-    if cam_row is None:
-        cam_row = _packed(scene)[2]
-    cam_row = cam_row.to(device=dev, dtype=torch.float32).reshape(12).contiguous()
+    cam_row = host_camera_row(cam_row)
     if dev.type == "cpu":
         with span("wh.launch"):
             return render_whitted_scene(scene, width, height, supersample, trace_depth,

@@ -483,20 +483,21 @@ def render_whitted_scene(
     return reduce_subsamples(acc, width, height, supersample)
 
 
-def camera_to_device(camera, device) -> Optional[torch.Tensor]:
-    """``render_whitted``'s ``camera`` as a [12] float32 row on ``device``:
-    None stays None (the reference's fixed viewpoint); a pose ``(eye,
+def camera_row(camera) -> Optional[torch.Tensor]:
+    """``render_whitted``'s ``camera`` as a [12] float32 row made on the
+    host: None stays None (the reference's fixed viewpoint); a pose ``(eye,
     target)``, three floats each, is ``whitted_camera_row(eye, target)``;
-    anything else is taken as a [12] row. The row is copied from the host as
-    it is."""
+    anything else is taken as a [12] row, left on its device. Nothing is
+    copied to the device here: K3 takes the row as a launch parameter, and
+    the plain render moves it to where it makes its rays."""
     if camera is None:
         return None
     if not isinstance(camera, torch.Tensor) and len(camera) == 2:
-        camera = torch.from_numpy(whitted_camera_row(*camera))
+        return torch.from_numpy(whitted_camera_row(*camera))
     row = torch.as_tensor(camera, dtype=torch.float32)
     if row.numel() != 12:
         raise ValueError(f"camera: need (eye, target) or a [12] row, got {tuple(row.shape)}")
-    return row.reshape(12).to(device)
+    return row.reshape(12)
 
 
 def render_whitted(scene: WhittedScene, config, device=None, *, camera=None) -> torch.Tensor:
@@ -507,17 +508,18 @@ def render_whitted(scene: WhittedScene, config, device=None, *, camera=None) -> 
     CPU); otherwise in ``render_whitted_scene``. ``device=None`` means
     CUDA and raises when no GPU is present. ``camera``: None for the
     reference's fixed viewpoint, a pose ``(eye, target)`` or a [12] row
-    (``camera_to_device``).
+    (``camera_row``).
 
     Under a profiler session the call is a ``wh.render`` span holding
-    ``wh.camera`` (the row made and put on the device) and ``wh.launch``
+    ``wh.camera`` (the row made on the host, passed to K3 as a launch
+    parameter) and ``wh.launch``
     (K3's launch, or the plain render), K3's ``wh.tables`` lookup beside it
     on a CUDA device."""
     with span("wh.render"):
         device = resolve_device(device)
         scene = scene.to(device)
         with span("wh.camera"):
-            cam_row = camera_to_device(camera, device)
+            cam_row = camera_row(camera)
         kw = dict(width=config.width, height=config.height, supersample=config.supersample,
                   trace_depth=config.trace_depth, hit_bias=config.hit_bias, cam_row=cam_row)
         if config.use_kernel:

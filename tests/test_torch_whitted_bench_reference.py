@@ -157,7 +157,7 @@ def test_the_plain_render_and_k3s_twin_agree_with_a_pose():
 
 def test_no_camera_is_the_fixed_viewpoints_frame_bitwise():
     """``camera=None`` renders what ``render_whitted`` rendered before it
-    took a camera: K3's entry with no row (its packed default) on the
+    took a camera: K3's entry with no row (its fixed host row) on the
     kernel route, ``render_whitted_scene`` with none on the plain one."""
     scene = S.room_scene("cpu")
     for depth, bias in ((5, 0.0), (2, 0.005)):
